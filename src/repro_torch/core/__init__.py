@@ -1,0 +1,45 @@
+"""The sort library's public surface (PyTorch / CUDA port)."""
+
+from repro_torch.core.bucket_sort import (
+    argsort,
+    argsort_batched,
+    sort,
+    sort_batched,
+    sort_batched_with_stats,
+    sort_kv,
+    sort_kv_batched,
+    sort_planned,
+    sort_with_stats,
+)
+from repro_torch.core.key_codec import SUPPORTED_DTYPES, KeyCodec, codec_for
+from repro_torch.core.plan import (
+    LevelPlan,
+    SortPlan,
+    build_plan,
+    build_words_plan,
+    config_fingerprint,
+)
+from repro_torch.core.sort_config import DEFAULT_CONFIG, PAPER_CONFIG, SortConfig
+
+__all__ = [
+    "argsort",
+    "argsort_batched",
+    "sort",
+    "sort_batched",
+    "sort_batched_with_stats",
+    "sort_kv",
+    "sort_kv_batched",
+    "sort_planned",
+    "sort_with_stats",
+    "KeyCodec",
+    "SUPPORTED_DTYPES",
+    "codec_for",
+    "LevelPlan",
+    "SortPlan",
+    "build_plan",
+    "build_words_plan",
+    "config_fingerprint",
+    "DEFAULT_CONFIG",
+    "PAPER_CONFIG",
+    "SortConfig",
+]

@@ -1,0 +1,57 @@
+"""State that crosses between the JAX package and the port.
+
+A sort has no weights: what crosses is the canonical key words and the
+plan.  The JAX package carries words as uint32, the port as biased
+int32 (``w ^ 0x80000000``); numpy is the common ground.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_BIAS = np.uint32(0x80000000)
+
+
+def words_from_numpy(words) -> tuple[torch.Tensor, ...]:
+    """uint32 canonical words (array or sequence of arrays, msw first)
+    -> biased int32 CPU tensors."""
+    if isinstance(words, np.ndarray):
+        words = (words,)
+    return tuple(
+        torch.from_numpy((np.asarray(w, np.uint32) ^ _BIAS).view(np.int32))
+        for w in words
+    )
+
+
+def words_to_numpy(words) -> tuple[np.ndarray, ...]:
+    """Biased int32 tensors -> uint32 canonical words as numpy arrays."""
+    if isinstance(words, torch.Tensor):
+        words = (words,)
+    return tuple(
+        w.detach().cpu().numpy().astype(np.int32, copy=False).view(np.uint32)
+        ^ _BIAS
+        for w in words
+    )
+
+
+def _node_tree(node) -> tuple | None:
+    if node is None:
+        return None
+    return (
+        node.kind, node.rows, node.length, node.lp, node.tile, node.s,
+        node.m, node.s_round, node.cap,
+        _node_tree(node.sample_plan), _node_tree(node.bucket_plan),
+    )
+
+
+def plan_tree(plan) -> tuple:
+    """Nested tuple of a plan's algorithmic fields: (rows, length,
+    num_words, root) with each node as (kind, rows, length, lp, tile, s,
+    m, s_round, cap, sample subtree, bucket subtree).
+
+    Works on this package's :class:`SortPlan` and, field for field, on
+    the JAX package's plans, so the two can be compared for equality.
+    """
+    return (plan.rows, plan.length, plan.num_words, _node_tree(plan.root))
+
