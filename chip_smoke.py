@@ -24,6 +24,14 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
 
 Any failure raises, and the script exits non-zero without the last line;
 it also exits non-zero when CUDA is not available.
+
+    python3 chip_smoke.py --memory
+
+runs the memory probe instead: the peak device memory of every step of
+one 2^26 int32 ``sort`` (tile sort, relocation, direct sort, compaction,
+by level), then ``sort`` of growing n, each checked against
+``torch.sort``, until one runs out of device memory; the largest n that
+fits is the last line before the device line.
 """
 
 from __future__ import annotations
@@ -188,10 +196,11 @@ def measure_k1(m, t, nw, s, gen):
     if nw == 1:
         composite = (words[0].long() << 32) | vals.long()
         library_ms = time_ms(lambda: torch.sort(composite, dim=1), 5)
-    levels = int(math.log2(t))
-    exchanges = m * (t // 2) * levels * (levels + 1) // 2
     nbytes = 4 * (nw + 1) * (2 * m * t + m * s)
-    ops = exchanges * 3 * (nw + 1)  # a compare and two selects per array
+    # Any comparison sort of T distinct elements needs log2(T!) compares
+    # per row, one operation each at least (not the bitonic network's
+    # own T/2 * log2 T * (log2 T + 1) / 2 compare-exchanges).
+    ops = m * math.lgamma(t + 1) / math.log(2)
     return err, ms, plain_ms, library_ms, nbytes, ops
 
 
@@ -245,6 +254,92 @@ def profile_main_path(case):
         "top": [{"kernel": k[:90], "ms": ms, "calls": c}
                 for k, (ms, c) in top],
     }))
+
+
+def memory_by_step(x):
+    """Peak device memory of each step of one ``sort`` of x.
+
+    Wraps the executor's step functions for the one call: before a step
+    the allocator's peak is reset, after it the peak and what was held
+    when the step began are read.
+    """
+    from repro_torch.core import bucket_sort
+    from repro_torch.kernels import ops
+
+    steps = []
+    watched = (
+        (ops, "sort_tiles_sample",
+         lambda kw, vals, **_: f"tile sort + samples {tuple(vals.shape)}"),
+        (bucket_sort, "_relocate_gather",
+         lambda *a: f"relocate -> ({a[5] * a[7]}, {a[9]})"),
+        (bucket_sort, "_direct_sort",
+         lambda data, node, _: f"direct sort ({node.rows}, {node.lp})"),
+        (bucket_sort, "_compact_gather",
+         lambda *a: f"compact -> ({a[3]}, {a[5]})"),
+    )
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in watched]
+
+    def watch(fn, label):
+        def step(*args, **kwargs):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            steps.append({"step": label(*args, **kwargs), "held_bytes": held,
+                          "peak_bytes": torch.cuda.max_memory_allocated()})
+            return out
+        return step
+
+    for (mod, name, label), (_, _, fn) in zip(watched, originals):
+        setattr(mod, name, watch(fn, label))
+    try:
+        base = torch.cuda.memory_allocated()
+        out = bucket_sort.sort(x)
+        torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    if not torch.equal(out, torch.sort(x, stable=True).values):
+        raise AssertionError("memory probe: sort differs from torch.sort")
+    for st in steps:
+        st["peak_bytes_above_input"] = st["peak_bytes"] - base
+        print(json.dumps({"memory_step": st}))
+
+
+def memory_ceiling(sizes, gen):
+    """``sort`` of int32 keys of each size in turn, checked against
+    torch.sort, until one runs out of device memory.  Returns the
+    largest size that fit (0 if none)."""
+    from repro_torch.core import bucket_sort
+
+    fit = 0
+    for n in sizes:
+        x = torch.randint(-(2**31), 2**31 - 1, (n,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            out = bucket_sort.sort(x)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        except torch.cuda.OutOfMemoryError as e:
+            # The probe's answer, not a failure: n does not fit the card.
+            print(json.dumps({"memory_ceiling": {
+                "n": n, "fits": False, "error": str(e).splitlines()[0]}}))
+            break
+        peak = torch.cuda.max_memory_allocated()
+        if not torch.equal(out, torch.sort(x, stable=True).values):
+            raise AssertionError(f"memory probe: sort of {n} differs")
+        print(json.dumps({"memory_ceiling": {
+            "n": n, "fits": True, "peak_bytes_above_input": peak - base,
+            "wall_ms_first_call": ms}}))
+        fit = n
+        del x, out
+        torch.cuda.empty_cache()
+    return fit
 
 
 def main_path_cases(rng):
@@ -307,6 +402,8 @@ def main_path_cases(rng):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--memory", action="store_true",
+                        help="run the memory probe instead of the checks")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -323,6 +420,18 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    if args.memory:
+        memory_by_step(torch.from_numpy(
+            rng.integers(-(2**31), 2**31, 1 << 26, dtype=np.int32)).cuda())
+        fit = memory_ceiling(
+            (1 << 27, 1 << 28, 5 << 26, 3 << 27, 1 << 29), gen)
+        print(json.dumps({"largest_n_that_fits": fit}))
+        print(gpu)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
     cases = main_path_cases(rng)
 
     # The launches each case's plan calls for, from the plans alone.

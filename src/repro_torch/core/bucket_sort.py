@@ -40,6 +40,9 @@ from repro_torch.kernels import ops
 
 _PAD = 2**31 - 1  # biased pad word (canonical 0xFFFFFFFF)
 _INT_MAX = 2**31 - 1
+# Elements of one chunk of the relocation and compaction index math:
+# bounds their int64 temporaries (8 bytes each) per level.
+_GLUE_CHUNK = 1 << 25
 
 
 def resolve_device(device=None) -> torch.device:
@@ -74,12 +77,14 @@ def _pad_cols(kw, vals, new_len: int, pad_base: int):
     return kw, torch.cat([vals, pv], dim=1), pad_base + extra
 
 
-def _direct_sort(kw, vals, node: LevelPlan, pad_base: int):
-    """One tile sort of each (rows, L) row, L <= direct_max."""
-    length = vals.shape[1]
+def _direct_sort(data: list, node: LevelPlan, pad_base: int):
+    """One tile sort of each (rows, L) row, L <= direct_max, padded to
+    lp; takes and empties ``data`` as :func:`_run_node` does."""
+    kw, vals = data
+    data.clear()
     kw, vals, pad_base = _pad_cols(kw, vals, node.lp, pad_base)
-    sk, sv = ops.sort_tiles(kw, vals, block_rows=node.block_rows)
-    return tuple(w[:, :length] for w in sk), sv[:, :length], pad_base
+    sk, sv = ops.sort_tiles(kw, vals)
+    return sk, sv, pad_base
 
 
 def _chunk_search(offsets: torch.Tensor, positions: torch.Tensor):
@@ -90,6 +95,12 @@ def _chunk_search(offsets: torch.Tensor, positions: torch.Tensor):
                               out_int32=True) - 1
 
 
+def _row_chunks(rows: int, width: int):
+    """(first, end) row ranges of about ``_GLUE_CHUNK`` elements each."""
+    step = max(1, _GLUE_CHUNK // width)
+    return ((a, min(a + step, rows)) for a in range(0, rows, step))
+
+
 def _relocate_gather(tkw, tv, starts, tile_off, totals, r, m, s_round, t,
                      cap, pad_base):
     """Step 8: for every slot of the (r*s_round, cap) bucket array, the
@@ -97,54 +108,84 @@ def _relocate_gather(tkw, tv, starts, tile_off, totals, r, m, s_round, t,
 
     Slot p of bucket row q = r'*s_round + j reads from the tile whose
     chunk covers p, at p minus that chunk's offset; slots past the
-    bucket's fill become fresh pads, unique within their row.
+    bucket's fill become fresh pads, unique within their row.  Bucket
+    rows are filled in chunks, so the int64 index temporaries stay
+    near ``_GLUE_CHUNK`` elements whatever the level's size.
     """
     q = r * s_round
     dev = tv.device
     offs = tile_off.permute(0, 2, 1).reshape(q, m).contiguous()
     st = starts.reshape(r, m, s_round).permute(0, 2, 1).reshape(q, m)
-    p = torch.arange(cap, dtype=torch.int32, device=dev).expand(q, cap)
-    src_tile = _chunk_search(offs, p.contiguous()).long()  # (q, cap)
-    src_start = torch.gather(st, 1, src_tile)
-    src_off = torch.gather(offs, 1, src_tile)
-    row_base = (torch.arange(q, device=dev) // s_round * m).unsqueeze(1)
-    src = (row_base + src_tile) * t + (src_start + (p - src_off))
-    valid = p < totals.reshape(q, 1)
-    src = torch.where(valid, src, 0).reshape(-1)
-    bkw = tuple(
-        torch.where(valid, w.reshape(-1)[src].reshape(q, cap), _PAD)
-        for w in tkw
-    )
-    bv = torch.where(valid, tv.reshape(-1)[src].reshape(q, cap), pad_base + p)
+    fill = totals.reshape(q, 1)
+    src_w = tuple(w.reshape(-1) for w in tkw)
+    src_v = tv.reshape(-1)
+    bkw = tuple(torch.empty((q, cap), dtype=torch.int32, device=dev) for _ in tkw)
+    bv = torch.empty((q, cap), dtype=torch.int32, device=dev)
+    p = torch.arange(cap, dtype=torch.int32, device=dev)
+    pad_word = torch.tensor(_PAD, dtype=torch.int32, device=dev)
+    for a, b in _row_chunks(q, cap):
+        src_tile = _chunk_search(offs[a:b], p.expand(b - a, cap).contiguous()).long()
+        within = p + (torch.gather(st[a:b], 1, src_tile)
+                      - torch.gather(offs[a:b], 1, src_tile))
+        row_base = (torch.arange(a, b, device=dev) // s_round * m).unsqueeze(1)
+        src = (row_base + src_tile) * t + within
+        del src_tile, within
+        valid = p < fill[a:b]
+        src = src.masked_fill_(~valid, 0).reshape(-1)
+        for w, out in zip(src_w, bkw):
+            torch.where(valid, w[src].reshape(b - a, cap), pad_word,
+                        out=out[a:b])
+        torch.where(valid, src_v[src].reshape(b - a, cap), pad_base + p,
+                    out=bv[a:b])
     return bkw, bv
 
 
-def _compact_gather(ckw, cv, totals, r, s_round, cap, lp):
+def _compact_gather(ckw, cv, totals, r, s_round, lp):
     """Step 9 compaction: dense column c of row r' reads from the bucket
     covering c, at c minus that bucket's offset (every slot has exactly
-    one source, since fills sum to lp)."""
+    one source, since fills sum to lp).  ``ckw`` / ``cv`` are the sorted
+    (r*s_round, width) bucket rows, width >= cap; rows are filled in
+    chunks as in relocation."""
     dev = cv.device
+    width = cv.shape[1]
     bucket_off = torch.cumsum(totals, 1, dtype=torch.int32) - totals
-    c = torch.arange(lp, dtype=torch.int32, device=dev).expand(r, lp)
-    srcj = _chunk_search(bucket_off, c.contiguous()).long()  # (r, lp)
-    within = c - torch.gather(bucket_off, 1, srcj)
-    row = torch.arange(r, device=dev).unsqueeze(1)
-    src = ((row * s_round + srcj) * cap + within).reshape(-1)
-    okw = tuple(w.reshape(-1)[src].reshape(r, lp) for w in ckw)
-    return okw, cv.reshape(-1)[src].reshape(r, lp)
+    src_w = tuple(w.reshape(-1) for w in ckw)
+    src_v = cv.reshape(-1)
+    okw = tuple(torch.empty((r, lp), dtype=torch.int32, device=dev) for _ in ckw)
+    ov = torch.empty((r, lp), dtype=torch.int32, device=dev)
+    c = torch.arange(lp, dtype=torch.int32, device=dev)
+    for a, b in _row_chunks(r, lp):
+        srcj = _chunk_search(bucket_off[a:b], c.expand(b - a, lp).contiguous()).long()
+        within = c - torch.gather(bucket_off[a:b], 1, srcj)
+        row = torch.arange(a, b, device=dev).unsqueeze(1) * s_round
+        src = ((row + srcj) * width + within).reshape(-1)
+        del srcj, within
+        for w, out in zip(src_w, okw):
+            torch.index_select(w, 0, src, out=out[a:b].view(-1))
+        torch.index_select(src_v, 0, src, out=ov[a:b].view(-1))
+    return okw, ov
 
 
-def _run_node(kw, vals, node: LevelPlan, pad_base: int, stats: list | None):
+def _run_node(data: list, node: LevelPlan, pad_base: int, stats: list | None):
     """Sort each row of (rows, L) key words / payloads by walking one plan
-    node.  Returns (sorted kw, sorted vals, pad_base)."""
-    r, length = vals.shape
+    node.  ``data`` is the list [key words, payloads], which the node
+    empties: it owns its input, so each level's input is freed once its
+    tile sort has read it.
+
+    Returns:
+        (sorted kw, sorted vals, pad_base), rows of the node's padded
+        width lp: the first L columns are the sorted row, then pads.
+    """
+    r, length = data[1].shape
     if (r, length) != (node.rows, node.length):
         raise ValueError(
             f"plan/data mismatch: data {(r, length)} vs plan node "
             f"{(node.rows, node.length)}"
         )
     if node.kind == "direct":
-        return _direct_sort(kw, vals, node, pad_base)
+        return _direct_sort(data, node, pad_base)
+    kw, vals = data
+    data.clear()
 
     t, sper, lp, m = node.tile, node.s, node.lp, node.m
     s_round, cap = node.s_round, node.cap
@@ -153,16 +194,17 @@ def _run_node(kw, vals, node: LevelPlan, pad_base: int, stats: list | None):
     # Steps 1-3: tile sort with the samples emitted by its epilogue.
     tkw, tv, samp_kw, samp_v = ops.sort_tiles_sample(
         tuple(w.reshape(r * m, t) for w in kw), vals.reshape(r * m, t),
-        num_samples=sper, block_rows=node.block_rows,
+        num_samples=sper,
     )
     del kw, vals
-    samples_kw = tuple(w.reshape(r, m * sper) for w in samp_kw)
-    samples_v = samp_v.reshape(r, m * sper)
 
     # Step 4: sort all samples (recursion on the (r, m*s) sample array).
     sskw, ssv, pad_base = _run_node(
-        samples_kw, samples_v, node.sample_plan, pad_base, None
+        [tuple(w.reshape(r, m * sper) for w in samp_kw),
+         samp_v.reshape(r, m * sper)],
+        node.sample_plan, pad_base, None,
     )
+    del samp_kw, samp_v
 
     # Step 5: s_round - 1 equidistant global splitters per row.
     total = m * sper
@@ -174,19 +216,19 @@ def _run_node(kw, vals, node: LevelPlan, pad_base: int, stats: list | None):
 
     # Steps 6-7: splitter ranks and per-tile bucket counts, then the
     # column-major prefix sums over (rows, m, s_round).
-    ranks, counts2 = ops.splitter_partition(
-        tkw, tv, spkw_t, spv_t, block_rows=node.part_block_rows
-    )
+    ranks, counts2 = ops.splitter_partition(tkw, tv, spkw_t, spv_t)
     starts = torch.cat([torch.zeros_like(ranks[:, :1]), ranks], dim=1)
     counts = counts2.reshape(r, m, s_round)
     tile_off = torch.cumsum(counts, 1, dtype=torch.int32) - counts
     totals = counts.sum(1, dtype=torch.int32)  # (r, s_round) bucket fills
+    del ranks, counts, counts2, spkw_t, spv_t
 
-    # Step 8: relocation into the dense (r*s_round, cap) bucket array.
-    bkw, bv = _relocate_gather(
+    # Step 8: relocation into the dense (r*s_round, cap) bucket array,
+    # handed to the bucket recursion with no reference kept here.
+    bucket_data = list(_relocate_gather(
         tkw, tv, starts, tile_off, totals, r, m, s_round, t, cap, pad_base
-    )
-    del tkw, tv, starts, tile_off, ranks, counts, counts2
+    ))
+    del tkw, tv, starts, tile_off
     pad_base += cap
 
     if stats is not None:
@@ -196,10 +238,9 @@ def _run_node(kw, vals, node: LevelPlan, pad_base: int, stats: list | None):
         ))
 
     # Step 9: sort every bucket row (recursion), then compact.
-    ckw, cv, pad_base = _run_node(bkw, bv, node.bucket_plan, pad_base, stats)
-    del bkw, bv
-    okw, ov = _compact_gather(ckw, cv, totals, r, s_round, cap, lp)
-    return tuple(w[:, :length] for w in okw), ov[:, :length], pad_base
+    ckw, cv, pad_base = _run_node(bucket_data, node.bucket_plan, pad_base, stats)
+    okw, ov = _compact_gather(ckw, cv, totals, r, s_round, lp)
+    return okw, ov, pad_base
 
 
 def _execute_packed(kw, vals, plan: SortPlan, pad_base0: int, *,
@@ -215,7 +256,9 @@ def _execute_packed(kw, vals, plan: SortPlan, pad_base0: int, *,
             f"plan impl {plan.impl!r} cannot run on {vals.device} tensors"
         )
     stats: list | None = [] if with_stats else None
-    skw, sv, pad_base = _run_node(tuple(kw), vals, plan.root, pad_base0, stats)
+    skw, sv, pad_base = _run_node([tuple(kw), vals], plan.root, pad_base0, stats)
+    skw = tuple(w[:, :plan.length] for w in skw)
+    sv = sv[:, :plan.length]
     if pad_base >= _INT_MAX:
         raise OverflowError(
             f"pad payload budget exhausted ({pad_base}); reduce L or raise "

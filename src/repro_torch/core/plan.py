@@ -7,9 +7,12 @@ per-level ``rows x tile`` geometry, ``s_round``, bucket capacities.
 :class:`SortPlan`; the executor in ``core/bucket_sort.py`` walks it and
 derives nothing.  The algorithmic fields (``kind``, ``rows``,
 ``length``, ``lp``, ``m``, ``s_round``, ``cap`` and the tree) equal the
-JAX package's plan; ``block_rows`` / ``part_block_rows`` are the CUDA
-kernels' rows per CTA instead of the TPU's VMEM blocks, and rows are
-never padded (the TPU's sublane rule does not apply).
+JAX package's plan.  The TPU's VMEM blocking (``block_rows`` /
+``part_block_rows``) has no field here: the CUDA kernel wrappers derive
+their rows per CTA from the tile shape (``kernels/bitonic.py``
+``effective_block_rows``, ``kernels/splitter.py``
+``partition_block_rows``).  Rows are never padded (the TPU's sublane
+rule does not apply).
 """
 
 from __future__ import annotations
@@ -23,8 +26,6 @@ import torch
 
 from repro_torch.core.key_codec import codec_for
 from repro_torch.core.sort_config import SortConfig, next_pow2, round_up
-from repro_torch.kernels.bitonic import effective_block_rows
-from repro_torch.kernels.splitter import partition_block_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,25 +43,21 @@ class LevelPlan:
         rows / length: the shape entering this level (before padding).
         lp: padded row length (direct: next power of two; bucket: a
             multiple of tile).
-        block_rows: rows per CTA of the level's tile-sort kernel.
         tile / s / m: tile width, samples per tile, tiles per row
             (bucket levels only; 0 for direct).
         s_round: buckets this round.
         cap: per-bucket capacity round_up(lp/s_round + lp/s, 128).
-        part_block_rows: tiles per CTA of the splitter-partition kernel.
     """
 
     kind: str
     rows: int
     length: int
     lp: int
-    block_rows: int
     tile: int = 0
     s: int = 0
     m: int = 0
     s_round: int = 0
     cap: int = 0
-    part_block_rows: int = 0
     sample_plan: "LevelPlan | None" = None
     bucket_plan: "LevelPlan | None" = None
 
@@ -107,15 +104,13 @@ class SortPlan:
         while node is not None:
             if node.kind == "direct":
                 lines.append(
-                    f"  L{depth}: direct rows={node.rows} lp={node.lp} "
-                    f"block_rows={node.block_rows}"
+                    f"  L{depth}: direct rows={node.rows} lp={node.lp}"
                 )
                 break
             lines.append(
                 f"  L{depth}: bucket rows={node.rows} lp={node.lp} "
                 f"tile={node.tile} s={node.s} m={node.m} "
-                f"s_round={node.s_round} cap={node.cap} "
-                f"block_rows={node.block_rows}"
+                f"s_round={node.s_round} cap={node.cap}"
             )
             node = node.bucket_plan
             depth += 1
@@ -135,10 +130,7 @@ def config_fingerprint(cfg: SortConfig) -> str:
 def _build_node(rows: int, length: int, cfg: SortConfig) -> LevelPlan:
     if length <= cfg.direct_max:
         lp = next_pow2(length)
-        return LevelPlan(
-            kind="direct", rows=rows, length=length, lp=lp,
-            block_rows=effective_block_rows(rows, lp, cfg.block_rows),
-        )
+        return LevelPlan(kind="direct", rows=rows, length=length, lp=lp)
     t, sper = cfg.tile, cfg.s
     lp = round_up(length, t)
     m = lp // t
@@ -159,9 +151,7 @@ def _build_node(rows: int, length: int, cfg: SortConfig) -> LevelPlan:
         )
     return LevelPlan(
         kind="bucket", rows=rows, length=length, lp=lp,
-        block_rows=effective_block_rows(rows * m, t, cfg.block_rows),
         tile=t, s=sper, m=m, s_round=s_round, cap=cap,
-        part_block_rows=partition_block_rows(rows * m),
         sample_plan=_build_node(rows, m * sper, cfg),
         bucket_plan=_build_node(rows * s_round, cap, cfg),
     )

@@ -2,7 +2,8 @@
 
 Same knobs and the same field-naming ``ValueError``s as the JAX
 package's ``SortConfig``, minus the TPU-only ones (``interpret``,
-``row_pad``).  Values the port does not run yet raise
+``row_pad``) and ``block_rows``: the kernel wrappers size their CTAs
+from the tile shape alone.  Values the port does not run yet raise
 ``NotImplementedError`` naming the field and the ROADMAP.md item that
 will bring them.
 """
@@ -48,8 +49,6 @@ class SortConfig:
         tile instead of going through a bucket round.
     impl: None (follow the device), "cuda" (kernels; CUDA tensors
         only) or "torch" (plain versions; CPU tensors only).
-    block_rows: upper bound on the rows one tile-sort CTA takes when
-        T is small (power of two); None = the kernel's own model.
     fuse_sampling / fuse_ranking / relocation / strategy / plan /
     check: as in the JAX package; only the defaults run in the port
         (the strategy knobs radix_bits / merge_run come with the
@@ -61,7 +60,6 @@ class SortConfig:
     s: int = 64
     direct_max: int = 8192
     impl: str | None = None
-    block_rows: int | None = None
     fuse_sampling: bool = True
     fuse_ranking: bool = True
     relocation: str = "gather"
@@ -100,8 +98,6 @@ class SortConfig:
                 f'SortConfig.impl must be None, "cuda" or "torch", '
                 f"got {self.impl!r}"
             )
-        if self.block_rows is not None:
-            _pow2("block_rows", self.block_rows, 1)
         if self.relocation not in ("gather", "scatter"):
             raise ValueError(
                 f'SortConfig.relocation must be "gather" or "scatter", '

@@ -113,15 +113,11 @@ def largest_pow2_divisor(m: int, limit: int) -> int:
     return b
 
 
-def effective_block_rows(m: int, t: int, block_rows: int | None = None) -> int:
+def effective_block_rows(m: int, t: int) -> int:
     """Rows of width ``t`` one kernel CTA sorts, for ``m`` rows: the
     largest power-of-two divisor of m that keeps the CTA near
-    ``_CTA_ELEMENTS`` elements (1 for T >= 2048), capped by an explicit
-    ``block_rows``."""
-    limit = max(_CTA_ELEMENTS // t, 1)
-    if block_rows is not None:
-        limit = min(limit, block_rows)
-    return largest_pow2_divisor(m, limit)
+    ``_CTA_ELEMENTS`` elements (1 for T >= 2048)."""
+    return largest_pow2_divisor(m, max(_CTA_ELEMENTS // t, 1))
 
 
 def _lib() -> ctypes.CDLL:
@@ -136,7 +132,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(words, vals, num_samples: int, block_rows):
+def _launch(words, vals, num_samples: int):
     nw = len(words)
     if nw not in (1, 2):
         raise ValueError(f"tile sort takes 1 or 2 key words, got {nw}")
@@ -155,7 +151,7 @@ def _launch(words, vals, num_samples: int, block_rows):
         raise ValueError(f"tile width {t} must be a power of two in [2, {MAX_TILE}]")
     if num_samples and t % num_samples:
         raise ValueError(f"num_samples {num_samples} must divide T = {t}")
-    rows = effective_block_rows(m, t, block_rows)
+    rows = effective_block_rows(m, t)
     out = [torch.empty_like(x) for x in words + (vals,)]
     samp = [
         torch.empty((m, num_samples), dtype=torch.int32, device=vals.device)
@@ -175,26 +171,23 @@ def _launch(words, vals, num_samples: int, block_rows):
     return out, samp
 
 
-def sort_tiles_kv(keys, vals: torch.Tensor, *, block_rows: int | None = None):
+def sort_tiles_kv(keys, vals: torch.Tensor):
     """Launch K1 on CUDA tensors: sort each row of (m, T) lexicographically.
 
     Args:
         keys: (m, T) int32 word tensor or tuple of 1-2 of them (msw first).
         vals: (m, T) int32 payloads, unique within each row.
-        block_rows: upper bound on rows per CTA (see
-            :func:`effective_block_rows`).
     Returns:
         (sorted keys in the input structure, sorted vals), new tensors.
     Raises:
         ValueError: for tensors the kernel does not take.
         RuntimeError: when the launch fails.
     """
-    out, _ = _launch(as_words(keys), vals, 0, block_rows)
+    out, _ = _launch(as_words(keys), vals, 0)
     return like_words(out[:-1], keys), out[-1]
 
 
-def sort_tiles_sample_kv(keys, vals: torch.Tensor, *, num_samples: int,
-                         block_rows: int | None = None):
+def sort_tiles_sample_kv(keys, vals: torch.Tensor, *, num_samples: int):
     """Launch K1 with the fused sample epilogue on CUDA tensors.
 
     Returns:
@@ -204,7 +197,7 @@ def sort_tiles_sample_kv(keys, vals: torch.Tensor, *, num_samples: int,
     """
     if num_samples < 1:
         raise ValueError(f"num_samples must be >= 1, got {num_samples}")
-    out, samp = _launch(as_words(keys), vals, num_samples, block_rows)
+    out, samp = _launch(as_words(keys), vals, num_samples)
     return (
         like_words(out[:-1], keys), out[-1],
         like_words(samp[:-1], keys), samp[-1],

@@ -37,39 +37,33 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return False
 
 
-def sort_tiles(keys, vals: torch.Tensor, *, block_rows: int | None = None):
+def sort_tiles(keys, vals: torch.Tensor):
     """Sort each row of (m, T) on (*words, payload); T a power of two.
 
     Returns:
         (sorted keys in the input structure, sorted vals).
     """
     if _on_cuda(vals):
-        return _bitonic.sort_tiles_kv(keys, vals, block_rows=block_rows)
+        return _bitonic.sort_tiles_kv(keys, vals)
     return _bitonic.bitonic_network_rows(keys, vals)
 
 
-def sort_tiles_sample(keys, vals: torch.Tensor, *, num_samples: int,
-                      block_rows: int | None = None):
+def sort_tiles_sample(keys, vals: torch.Tensor, *, num_samples: int):
     """Sorted (m, T) tiles plus s equidistant samples per tile.
 
     Returns:
         (sorted keys, sorted vals, sample keys (m, s), sample vals (m, s)).
     """
     if _on_cuda(vals):
-        return _bitonic.sort_tiles_sample_kv(
-            keys, vals, num_samples=num_samples, block_rows=block_rows
-        )
+        return _bitonic.sort_tiles_sample_kv(keys, vals, num_samples=num_samples)
     sk, sv = _bitonic.bitonic_network_rows(keys, vals)
     sw = tuple(take_samples(w, num_samples) for w in as_words(sk))
     return sk, sv, like_words(sw, keys), take_samples(sv, num_samples)
 
 
-def splitter_partition(keys, vals, sp_keys, sp_vals, *,
-                       block_rows: int | None = None):
+def splitter_partition(keys, vals, sp_keys, sp_vals):
     """Splitter ranks (m, S) and bucket counts (m, S+1) per tile.  On CUDA
     the tiles must be sorted (see ``splitter.splitter_partition_cuda``)."""
     if _on_cuda(vals):
-        return _splitter.splitter_partition_cuda(
-            keys, vals, sp_keys, sp_vals, block_rows=block_rows
-        )
+        return _splitter.splitter_partition_cuda(keys, vals, sp_keys, sp_vals)
     return _splitter.splitter_partition(keys, vals, sp_keys, sp_vals)

@@ -90,8 +90,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def splitter_partition_cuda(keys, vals, sp_keys, sp_vals, *,
-                            block_rows: int | None = None):
+def splitter_partition_cuda(keys, vals, sp_keys, sp_vals):
     """Launch K2 on CUDA tensors.
 
     PRECONDITION: every tile (row of ``keys``/``vals``) is sorted
@@ -99,8 +98,7 @@ def splitter_partition_cuda(keys, vals, sp_keys, sp_vals, *,
     The kernel binary-searches each splitter in its tile, which equals
     the plain version's count only on sorted tiles; it does not check.
 
-    Args/Returns: as :func:`splitter_partition`; ``block_rows`` caps the
-    tiles per CTA.
+    Args/Returns: as :func:`splitter_partition`.
     Raises:
         ValueError: for tensors the kernel does not take.
         RuntimeError: when the launch fails.
@@ -129,8 +127,7 @@ def splitter_partition_cuda(keys, vals, sp_keys, sp_vals, *,
             f"splitter partition takes 1 <= S <= {_MAX_SPLITTERS}, got {s}"
         )
     # The ranks of a CTA's tiles sit in 48 KB of static-limit shared memory.
-    tiles = min(partition_block_rows(m), _MAX_SPLITTERS // s,
-                block_rows or _TILES_PER_CTA)
+    tiles = min(partition_block_rows(m), _MAX_SPLITTERS // s)
     ranks = torch.empty((m, s), dtype=torch.int32, device=vals.device)
     counts = torch.empty((m, s + 1), dtype=torch.int32, device=vals.device)
     if m == 0:

@@ -128,6 +128,22 @@ def test_batched_entry_points_match_reference(dtype, shape):
     np.testing.assert_array_equal(got_kv[1].numpy(), want_kv[1])
 
 
+@pytest.mark.parametrize("chunk", [100, 3000])
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_glue_in_chunks_matches_reference(monkeypatch, dtype, chunk):
+    """Relocation and compaction filled a few rows (or one row) at a
+    time, as they are at sizes above ``_GLUE_CHUNK``."""
+    monkeypatch.setattr(bucket_sort, "_GLUE_CHUNK", chunk)
+    rng = np.random.default_rng(chunk)
+    a = make_keys(dtype, 20_000, rng)
+    jcfg, cfg = configs()
+    want = reference(lambda x: jax_sort.sort_with_stats(x, jcfg), a, dtype=dtype)
+    got = bucket_sort.sort_with_stats(torch.from_numpy(a), cfg, device="cpu")
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    assert_stats_equal(got[2], want[2])
+
+
 def test_default_config_bucket_level_matches_reference():
     """DEFAULT_CONFIG geometry at a length with a bucket level."""
     rng = np.random.default_rng(3)

@@ -96,15 +96,22 @@ def test_non_shrinking_level_is_refused_naming_s(tile, s, length):
 
 
 def test_kernel_geometry_is_rows_per_cta():
+    """The kernel wrappers size their CTAs from the tile shape alone; the
+    plan carries no TPU block field and SortConfig no block_rows."""
     p = plan_mod.build_plan(1 << 26, "int32", DEFAULT_CONFIG, device="cpu")
-    assert p.root.block_rows == 1 and p.root.part_block_rows == 4
+    top = p.root
+    assert bitonic.effective_block_rows(top.rows * top.m, top.tile) == 1
+    assert splitter.partition_block_rows(top.rows * top.m) == 4
     assert bitonic.effective_block_rows(1024, 64) == 32
-    assert bitonic.effective_block_rows(1024, 64, block_rows=4) == 4
     assert bitonic.effective_block_rows(1023, 64) == 1
     assert bitonic.effective_block_rows(8, 2) == 8
     assert splitter.partition_block_rows(3) == 3
     d = plan_mod.build_plan(100, "int32", SortConfig(), rows=64, device="cpu").root
-    assert (d.kind, d.lp, d.block_rows) == ("direct", 128, 16)
+    assert (d.kind, d.lp) == ("direct", 128)
+    assert bitonic.effective_block_rows(d.rows, d.lp) == 16
+    for name in ("block_rows", "part_block_rows"):
+        assert not hasattr(top, name)
+    assert not hasattr(DEFAULT_CONFIG, "block_rows")
 
 
 def test_plan_impl_follows_device_and_rejects_a_mismatch():
@@ -134,7 +141,7 @@ def test_plan_is_memoized_and_describes_itself():
     ("s", 8192, r"SortConfig.s \(8192\) must not exceed"),
     ("direct_max", 1024, "SortConfig.direct_max"),
     ("impl", "pallas", "SortConfig.impl"),
-    ("block_rows", 3, "SortConfig.block_rows"),
+    ("tile", 0, "SortConfig.tile must be a power of two"),
     ("relocation", "bogus", "SortConfig.relocation"),
     ("strategy", "bogus", "SortConfig.strategy"),
     ("plan", "", "SortConfig.plan"),
