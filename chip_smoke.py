@@ -5,20 +5,28 @@ Usage (from the root of a checkout, on a machine with an NVIDIA card):
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
+It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+(K1 tile sort, K2 splitter partition, K3 splitter ranks, K4 row top-k)
+and then
 
 1. holds each kernel bit for bit against its plain PyTorch version on
-   the card, at the row widths, word counts and sample counts of the
-   main path (rows capped to 2^22 elements per check), and at the main
-   path's top-level shape, which is also timed;
-2. drives the main path through the public entry points (``sort``,
-   ``argsort``, ``sort_kv``, ``sort_batched``) on seeded numpy data at
-   2^26 int32, 2^24 float32 with NaN / +-inf / -0.0, 2^24 int64 and
-   (256, 65536) int32, checks each result against stable
-   ``torch.sort`` on the card, and counts the kernel launches, which
-   must equal the launches the plans call for;
+   the card, at the row widths, word counts, sample and splitter counts
+   of the main path (rows capped to 2^22 elements per check; K3 on
+   sorted and on unsorted tiles; K4 at 16 to 1024 columns, one and two
+   words, k in {1, 6, 8}), and at a main-path shape, which is also timed;
+2. drives the main path through the public entry points on seeded
+   numpy data, ten cases: ``sort`` / ``argsort`` 2^26 int32, ``argsort``
+   2^24 float32 with NaN / +-inf / -0.0, ``sort_kv`` 2^24 int64,
+   ``sort_batched`` (256, 65536) int32, ``sort`` 2^24 int32 with
+   ``fuse_ranking=False``, ``topk_batched`` (256, 151936) float32 k=50,
+   ``topk`` 2^24 float32 k=1024, and ``ops.topk`` of (65536, 128) k=8
+   and (65536, 64) k=6 router probabilities; checks each result against
+   stable ``torch.sort`` on the card (descending for top-k, whose ties
+   go to the smaller index), and counts the kernel launches, which must
+   equal the launches the plans call for;
 3. times each entry point (median of CUDA-event-timed runs) beside
-   ``torch.sort``, with the peak device memory;
+   ``torch.sort`` or ``torch.topk``, with the peak device memory, and
+   profiles the 2^26 sort and the batched top-k;
 4. prints a JSON line of per-kernel numbers, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -37,6 +45,7 @@ fits is the last line before the device line.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import statistics
@@ -107,9 +116,33 @@ def kernel_launches(node, out):
         return out
     out.append(("tile_sort", node.rows * node.m, node.tile, node.s))
     kernel_launches(node.sample_plan, out)
-    out.append(("splitter_partition", node.rows * node.m, node.tile,
-                node.s_round - 1))
+    out.append(("splitter_partition" if node.fuse_ranking else "splitter_ranks",
+                node.rows * node.m, node.tile, node.s_round - 1))
     kernel_launches(node.bucket_plan, out)
+    return out
+
+
+def topk_launches(tplan):
+    """The launches of a partial sort's walk, from its TopkPlan: a row
+    the plan gives no SortPlan is one K1 launch at its power-of-two
+    width, a row it does is that plan's walk."""
+    out = []
+
+    def row(n, plan):
+        if plan is None:
+            width = max(2, 1 << (n - 1).bit_length())
+            out.append(("tile_sort", tplan.rows, width, 0))
+        else:
+            kernel_launches(plan.root, out)
+
+    if tplan.length <= tplan.direct_max:
+        row(tplan.length, tplan.final_plan)
+        return out
+    tiles = tplan.rows * tplan.m
+    out.append(("tile_sort", tiles, tplan.tile, tplan.s))
+    row(tplan.m * tplan.s, tplan.sample_plan)
+    out.append(("splitter_ranks", tiles, tplan.tile, tplan.s - 1))
+    row(tplan.ccap, tplan.final_plan)
     return out
 
 
@@ -142,7 +175,7 @@ def real_splitters(tkw, tv, samp_kw, samp_v, num_splitters, ref):
 
 def check_kernels(launch_shapes, gen):
     """Each kernel vs its plain version on the card, bit for bit."""
-    from repro_torch.kernels import bitonic, ref, splitter
+    from repro_torch.kernels import bitonic, ref, splitter, topk
 
     k1 = {(t, nw, s) for k, _, t, s, nw in launch_shapes if k == "tile_sort"}
     k1 |= {(t, nw, s) for t in (2, 64, 4096, 8192) for nw in (1, 2)
@@ -176,6 +209,42 @@ def check_kernels(launch_shapes, gen):
         print(f"K2 splitter_partition T={t} nw={nw} S={s}: max_abs_err={err}")
         if err:
             raise AssertionError("K2 disagrees with its plain version")
+    k3 = {(t, nw, s) for k, _, t, s, nw in launch_shapes if k == "splitter_ranks"}
+    for t, nw, s in sorted(k3):
+        m = max(1, CHECK_ELEMENTS // t)
+        words, vals = random_tiles(m, t, nw, gen)
+        # Unsorted tiles with unsorted splitters drawn from them (ties),
+        # payloads moved by -1, 0 or 1; then K1-sorted tiles with the
+        # pipeline's splitters.
+        pick = torch.randint(0, t, (m, s), generator=gen, device="cuda")
+        unsorted = (words, vals, tuple(torch.gather(w, 1, pick) for w in words),
+                    torch.gather(vals, 1, pick) + torch.randint(
+                        -1, 2, (m, s), generator=gen, device="cuda",
+                        dtype=torch.int32))
+        tkw, tv, skw, sv = bitonic.sort_tiles_sample_kv(
+            words, vals, num_samples=min(64, t))
+        for order, args in (("unsorted", unsorted),
+                            ("sorted", (tkw, tv) + real_splitters(
+                                tkw, tv, skw, sv, s, ref))):
+            got = splitter.splitter_ranks_cuda(*args)
+            torch.cuda.synchronize()
+            err = max_abs_err((got,), (splitter.splitter_ranks(*args),))
+            print(f"K3 splitter_ranks T={t} nw={nw} S={s} {order} tiles: "
+                  f"max_abs_err={err}")
+            if err:
+                raise AssertionError("K3 disagrees with its plain version")
+    k4 = {(c, nw, k) for c in (16, 64, 128, 1024) for nw in (1, 2)
+          for k in (1, 6, 8)}
+    k4 |= {(t, nw, s) for k, _, t, s, nw in launch_shapes if k == "topk"}
+    for c, nw, k in sorted(k4):
+        # A row count that leaves the last CTA's rows partly masked.
+        words, _ = random_tiles(max(1, CHECK_ELEMENTS // c) + 3, c, nw, gen)
+        got = topk.topk_desc_cuda(words, k)
+        torch.cuda.synchronize()
+        err = max_abs_err(flat(got), flat(topk.topk_desc(words, k)))
+        print(f"K4 topk C={c} nw={nw} k={k}: max_abs_err={err}")
+        if err:
+            raise AssertionError("K4 disagrees with its plain version")
 
 
 def measure_k1(m, t, nw, s, gen):
@@ -227,12 +296,57 @@ def measure_k2(m, t, nw, num_splitters, gen):
     return err, ms, plain_ms, library_ms, nbytes, ops
 
 
+def measure_k3(m, t, nw, num_splitters, gen):
+    """K3 at one main-path shape, on K1-sorted tiles with real splitters
+    (the partial sort's inputs)."""
+    from repro_torch.kernels import bitonic, ref, splitter
+
+    tkw, tv, skw, sv = bitonic.sort_tiles_sample_kv(
+        *random_tiles(m, t, nw, gen), num_samples=64)
+    spw, spv = real_splitters(tkw, tv, skw, sv, num_splitters, ref)
+    args = (tkw, tv, spw, spv)
+    err = max_abs_err((splitter.splitter_ranks_cuda(*args),),
+                      (splitter.splitter_ranks(*args),))
+    ms = time_ms(lambda: splitter.splitter_ranks_cuda(*args), 10)
+    plain_ms = time_ms(lambda: splitter.splitter_ranks(*args), 1)
+    library_ms = None
+    if nw == 1:
+        tiles = (tkw[0].long() << 32) | tv.long()
+        sps = (spw[0].long() << 32) | spv.long()
+        library_ms = time_ms(lambda: torch.searchsorted(tiles, sps), 10)
+    s = num_splitters
+    # The contract allows unsorted tiles, so the whole tile is read once.
+    nbytes = 4 * ((nw + 1) * m * t + (nw + 1) * m * s + m * s)
+    # Locating each element among S sorted splitters takes at least
+    # ceil(log2(S + 1)) compares.
+    ops = m * t * math.ceil(math.log2(s + 1))
+    return err, ms, plain_ms, library_ms, nbytes, ops
+
+
+def measure_k4(r, c, nw, k, gen):
+    """K4 at one main-path shape (router rows of c experts, top-k)."""
+    from repro_torch.kernels import topk
+
+    words, _ = random_tiles(r, c, nw, gen)
+    err = max_abs_err(flat(topk.topk_desc_cuda(words, k)),
+                      flat(topk.topk_desc(words, k)))
+    ms = time_ms(lambda: topk.topk_desc_cuda(words, k), 10)
+    plain_ms = time_ms(lambda: topk.topk_desc(words, k), 2)
+    library_ms = None
+    if nw == 1:  # timing only: torch.topk's tie order is its own
+        library_ms = time_ms(
+            lambda: torch.topk(words[0], k, dim=1, largest=False), 10)
+    nbytes = 4 * (nw * r * c + (nw + 1) * r * k)
+    ops = r * (c - 1)  # the k smallest of c need at least c - 1 compares
+    return err, ms, plain_ms, library_ms, nbytes, ops
+
+
 def profile_main_path(case):
     """Device time by kernel over one run of a main-path case, and the
     device's idle share of the run's wall time (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    name, fn, fargs, _, _ = case
+    name, fn, fargs = case.name, case.fn, case.args
     dev_args = tuple(a.cuda() for a in fargs)
     fn(*dev_args)
     torch.cuda.synchronize()
@@ -342,11 +456,50 @@ def memory_ceiling(sizes, gen):
     return fit
 
 
+Case = collections.namedtuple("Case", "name fn args check library launches")
+
+
+def bf16_ties(a: np.ndarray) -> torch.Tensor:
+    """float32 scores rounded to bfloat16 precision: many ties, and no
+    NaN or -0.0 (the CPU tests cover those)."""
+    return torch.from_numpy(a).to(torch.bfloat16).float()
+
+
 def main_path_cases(rng):
-    """(name, entry point, args, check, library call) of each main-path
-    run, with data from rng; check(out, *args) holds the entry point's
-    result against stable torch.sort."""
-    from repro_torch.core import bucket_sort
+    """The main-path runs, with data from rng: for each, the entry point,
+    its arguments, check(out, *args) against stable torch.sort, the
+    library call timed beside it and the launches its plan calls for
+    (kernel, rows, width, samples / splitters / k, key words)."""
+    from repro_torch.core import (
+        DEFAULT_CONFIG,
+        SortConfig,
+        build_plan,
+        build_topk_plan,
+        bucket_sort,
+        codec_for,
+        partial_sort,
+    )
+    from repro_torch.kernels import ops
+
+    def shape2(x):
+        return (1, x.shape[0]) if x.dim() == 1 else tuple(x.shape)
+
+    def sort_launches(x, cfg=DEFAULT_CONFIG):
+        rows, length = shape2(x)
+        nw = codec_for(x.dtype).num_words
+        plan = build_plan(length, x.dtype, cfg, rows=rows)
+        return [ln + (nw,) for ln in kernel_launches(plan.root, [])]
+
+    def partial_launches(x, k):
+        rows, length = shape2(x)
+        nw = codec_for(x.dtype).num_words
+        tplan = build_topk_plan(length, k, x.dtype, DEFAULT_CONFIG, rows=rows)
+        return [ln + (nw,) for ln in topk_launches(tplan)]
+
+    def router_launches(x, k):
+        r, c = x.shape
+        return [("topk", r, 1 << (c - 1).bit_length(), k,
+                 codec_for(x.dtype).num_words)]
 
     n26, n24 = 1 << 26, 1 << 24
     x32 = torch.from_numpy(rng.integers(-(2**31), 2**31, n26, dtype=np.int32))
@@ -362,6 +515,19 @@ def main_path_cases(rng):
                                         dtype=np.int64))
     v64 = torch.from_numpy(rng.standard_normal(n24).astype(np.float32))
     xb = torch.from_numpy(rng.integers(0, 1000, (256, 65536), dtype=np.int32))
+    # Ties: 2^24 keys from 2^20 values.
+    xu = torch.from_numpy(rng.integers(0, 1 << 20, n24, dtype=np.int32))
+    # Logits of a decode batch at the Qwen2 / Qwen3 vocab, and one long
+    # column of scores.
+    logits = bf16_ties(rng.standard_normal((256, 151_936), dtype=np.float32))
+    column = bf16_ties(rng.standard_normal(n24, dtype=np.float32))
+    # Router probabilities of a 64K-token prefill batch: 128 experts
+    # (Qwen3-MoE-30B-A3B, top-8) and 64 experts (Moonlight, top-6).
+    probs128 = bf16_ties(torch.softmax(torch.from_numpy(
+        rng.standard_normal((65536, 128), dtype=np.float32)), 1).numpy())
+    probs64 = bf16_ties(torch.softmax(torch.from_numpy(
+        rng.standard_normal((65536, 64), dtype=np.float32)), 1).numpy())
+    unfused = SortConfig(fuse_ranking=False)
 
     def total_order(x):
         # float32 total order (NaN last, -0.0 < +0.0) as an int32 key.
@@ -382,20 +548,44 @@ def main_path_cases(rng):
         want = library_kv(x, v)
         return torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
 
+    def check_topk(k):
+        # Stable descending order breaks ties toward the smaller index.
+        def check(out, x):
+            want = torch.sort(x, dim=-1, descending=True, stable=True)
+            return (torch.equal(out[0], want.values[..., :k])
+                    and torch.equal(out[1].long(), want.indices[..., :k]))
+        return check
+
+    def topk_case(name, fn, x, k, launches):
+        return Case(name, lambda a: fn(a, k), (x,), check_topk(k),
+                    lambda a: torch.topk(a, k, dim=-1), launches(x, k))
+
     return [
-        ("sort int32 2^26", bucket_sort.sort, (x32,), check_sort,
-         lambda x: torch.sort(x, stable=True)),
-        ("argsort int32 2^26", bucket_sort.argsort, (x32,), check_argsort,
-         lambda x: torch.sort(x, stable=True)),
-        ("argsort float32 2^24 NaN/inf/-0.0", bucket_sort.argsort, (xf,),
-         lambda out, x: torch.equal(
-             out.long(), torch.sort(total_order(x), stable=True).indices),
-         lambda x: torch.sort(x, stable=True)),
-        ("sort_kv int64 2^24", bucket_sort.sort_kv, (x64, v64), check_kv,
-         library_kv),
-        ("sort_batched int32 (256, 65536)", bucket_sort.sort_batched, (xb,),
-         lambda out, x: torch.equal(out, torch.sort(x, dim=1, stable=True).values),
-         lambda x: torch.sort(x, dim=1, stable=True)),
+        Case("sort int32 2^26", bucket_sort.sort, (x32,), check_sort,
+             lambda x: torch.sort(x, stable=True), sort_launches(x32)),
+        Case("argsort int32 2^26", bucket_sort.argsort, (x32,), check_argsort,
+             lambda x: torch.sort(x, stable=True), sort_launches(x32)),
+        Case("argsort float32 2^24 NaN/inf/-0.0", bucket_sort.argsort, (xf,),
+             lambda out, x: torch.equal(
+                 out.long(), torch.sort(total_order(x), stable=True).indices),
+             lambda x: torch.sort(x, stable=True), sort_launches(xf)),
+        Case("sort_kv int64 2^24", bucket_sort.sort_kv, (x64, v64), check_kv,
+             library_kv, sort_launches(x64)),
+        Case("sort_batched int32 (256, 65536)", bucket_sort.sort_batched, (xb,),
+             lambda out, x: torch.equal(
+                 out, torch.sort(x, dim=1, stable=True).values),
+             lambda x: torch.sort(x, dim=1, stable=True), sort_launches(xb)),
+        Case("sort int32 2^24 fuse_ranking=False",
+             lambda x: bucket_sort.sort(x, unfused), (xu,), check_sort,
+             lambda x: torch.sort(x, stable=True), sort_launches(xu, unfused)),
+        topk_case("topk_batched float32 (256, 151936) k=50",
+                  partial_sort.topk_batched, logits, 50, partial_launches),
+        topk_case("topk float32 2^24 k=1024", partial_sort.topk, column, 1024,
+                  partial_launches),
+        topk_case("ops.topk float32 (65536, 128) k=8", ops.topk, probs128, 8,
+                  router_launches),
+        topk_case("ops.topk float32 (65536, 64) k=6", ops.topk, probs64, 6,
+                  router_launches),
     ]
 
 
@@ -408,7 +598,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from repro_torch.core import DEFAULT_CONFIG, build_plan, codec_for
+    from repro_torch.core import DEFAULT_CONFIG, build_plan, build_topk_plan
     from repro_torch.kernels import _build, ops
 
     gpu = gpu_line()
@@ -433,53 +623,42 @@ def main() -> int:
         }}))
         return 0
     cases = main_path_cases(rng)
-
-    # The launches each case's plan calls for, from the plans alone.
-    plans, planned, shapes = [], [], set()
-    for _, fn, fargs, _, _ in cases:
-        x = fargs[0]
-        rows, length = (1, x.shape[0]) if x.dim() == 1 else tuple(x.shape)
-        plan = build_plan(length, x.dtype, DEFAULT_CONFIG, rows=rows)
-        plans.append(plan)
-        launches = kernel_launches(plan.root, [])
-        planned.append(launches)
-        nw = codec_for(x.dtype).num_words
-        shapes |= {(k, r, t, s, nw) for k, r, t, s in launches}
-
-    check_kernels(shapes, gen)
+    check_kernels({ln for case in cases for ln in case.launches}, gen)
 
     # Main path: counts set to 0 just before each run and read just after.
     totals = dict.fromkeys(ops.launch_counts(), 0)
-    for (name, fn, fargs, check, _), launches in zip(cases, planned):
-        dev_args = tuple(a.cuda() for a in fargs)
+    for case in cases:
+        dev_args = tuple(a.cuda() for a in case.args)
         ops.reset_launch_counts()
-        out = fn(*dev_args)
+        out = case.fn(*dev_args)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        want = {k: sum(1 for x in launches if x[0] == k) for k in counts}
-        if not check(out, *dev_args):
-            raise AssertionError(f"{name}: differs from stable torch.sort")
+        want = {k: sum(1 for x in case.launches if x[0] == k) for k in counts}
+        if not case.check(out, *dev_args):
+            raise AssertionError(f"{case.name}: differs from stable torch.sort")
         if counts != want:
-            raise AssertionError(f"{name}: launches {counts}, plan {want}")
+            raise AssertionError(f"{case.name}: launches {counts}, plan {want}")
         for k, c in counts.items():
             totals[k] += c
-        print(f"main path {name}: equal to stable torch.sort, launches {counts}")
-        del out
+        print(f"main path {case.name}: equal to stable torch.sort, "
+              f"launches {counts}")
+        del out, dev_args
     for k, c in totals.items():
         if c == 0:
             raise AssertionError(f"kernel {k} never launched on the main path")
 
-    for name, fn, fargs, _, library in cases:
-        dev_args = tuple(a.cuda() for a in fargs)
+    for case in cases:
+        dev_args = tuple(a.cuda() for a in case.args)
         n = dev_args[0].numel()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        ms = time_ms(lambda: fn(*dev_args), 3)
+        ms = time_ms(lambda: case.fn(*dev_args), 3)
         peak = torch.cuda.max_memory_allocated()
-        lib_ms = time_ms(lambda: library(*dev_args), 3)
+        lib_ms = time_ms(lambda: case.library(*dev_args), 3)
         print(json.dumps({
-            "main_path": name, "n": n, "ms": ms, "mkeys_per_s": n / ms / 1e3,
+            "main_path": case.name, "n": n, "ms": ms,
+            "mkeys_per_s": n / ms / 1e3,
             "peak_bytes": peak, "peak_bytes_above_inputs": peak - base,
             "library_ms": lib_ms,
             "library_mkeys_per_s": n / lib_ms / 1e3,
@@ -487,9 +666,12 @@ def main() -> int:
         del dev_args
 
     profile_main_path(cases[0])
+    profile_main_path(cases[6])  # the batched top-k of the serving case
 
-    # The kernels at the top-level shape of the 2^26 int32 sort.
-    top = plans[0].root
+    # K1 and K2 at the top-level shape of the 2^26 int32 sort, K3 at the
+    # serving top-k's tiles, K4 at the 128-expert router's rows.
+    top = build_plan(1 << 26, torch.int32, DEFAULT_CONFIG).root
+    serve = build_topk_plan(151_936, 50, torch.float32, DEFAULT_CONFIG, rows=256)
     rows = []
     for kernel, measure, shape, source, replaces in (
         ("tile_sort", measure_k1, (top.rows * top.m, top.tile, 1, top.s),
@@ -499,6 +681,13 @@ def main() -> int:
          (top.rows * top.m, top.tile, 1, top.s_round - 1),
          "src/repro_torch/kernels/csrc/splitter_partition.cu",
          "src/repro/kernels/splitter.py:161"),
+        ("splitter_ranks", measure_k3,
+         (serve.rows * serve.m, serve.tile, 1, serve.s - 1),
+         "src/repro_torch/kernels/csrc/splitter_ranks.cu",
+         "src/repro/kernels/splitter.py:69"),
+        ("topk", measure_k4, (65536, 128, 1, 8),
+         "src/repro_torch/kernels/csrc/topk.cu",
+         "src/repro/kernels/topk.py:41"),
     ):
         err, ms, plain_ms, library_ms, nbytes, nops = measure(*shape, gen)
         if err:

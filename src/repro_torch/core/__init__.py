@@ -12,10 +12,13 @@ from repro_torch.core.bucket_sort import (
     sort_with_stats,
 )
 from repro_torch.core.key_codec import SUPPORTED_DTYPES, KeyCodec, codec_for
+from repro_torch.core.partial_sort import topk, topk_batched
 from repro_torch.core.plan import (
     LevelPlan,
     SortPlan,
+    TopkPlan,
     build_plan,
+    build_topk_plan,
     build_words_plan,
     config_fingerprint,
 )
@@ -31,12 +34,16 @@ __all__ = [
     "sort_kv_batched",
     "sort_planned",
     "sort_with_stats",
+    "topk",
+    "topk_batched",
     "KeyCodec",
     "SUPPORTED_DTYPES",
     "codec_for",
     "LevelPlan",
     "SortPlan",
+    "TopkPlan",
     "build_plan",
+    "build_topk_plan",
     "build_words_plan",
     "config_fingerprint",
     "DEFAULT_CONFIG",

@@ -9,7 +9,9 @@ and int32 payloads, with two hand-written CUDA kernels:
   step 3  s equidistant local samples -> K1's fused sample epilogue
   step 4  sort all samples            -> recursion on the sample array
   step 5  s equidistant global samples-> strided slice of sorted samples
-  step 6  sample indexing             -> K2 splitter partition
+  step 6  sample indexing             -> K2 splitter partition, or K3
+                                         splitter ranks when
+                                         fuse_ranking=False
   step 7  column-major prefix sum     -> cumsums over (rows, m, s) counts
   step 8  data relocation             -> source index per bucket slot
                                          (searchsorted), then one gather
@@ -37,27 +39,14 @@ from repro_torch.core.key_codec import codec_for
 from repro_torch.core.plan import LevelPlan, SortPlan, build_plan
 from repro_torch.core.sort_config import DEFAULT_CONFIG, SortConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ops import resolve_device
+from repro_torch.kernels.splitter import counts_from_ranks
 
 _PAD = 2**31 - 1  # biased pad word (canonical 0xFFFFFFFF)
 _INT_MAX = 2**31 - 1
 # Elements of one chunk of the relocation and compaction index math:
 # bounds their int64 temporaries (8 bytes each) per level.
 _GLUE_CHUNK = 1 << 25
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device, None meaning "cuda".
-
-    Raises:
-        RuntimeError: for a CUDA device when CUDA is not available.
-    """
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch sorts on CUDA by default and CUDA is not available; "
-            'pass device="cpu" to run the plain PyTorch versions'
-        )
-    return dev
 
 
 def _pad_cols(kw, vals, new_len: int, pad_base: int):
@@ -216,7 +205,11 @@ def _run_node(data: list, node: LevelPlan, pad_base: int, stats: list | None):
 
     # Steps 6-7: splitter ranks and per-tile bucket counts, then the
     # column-major prefix sums over (rows, m, s_round).
-    ranks, counts2 = ops.splitter_partition(tkw, tv, spkw_t, spv_t)
+    if node.fuse_ranking:
+        ranks, counts2 = ops.splitter_partition(tkw, tv, spkw_t, spv_t)
+    else:
+        ranks = ops.splitter_ranks(tkw, tv, spkw_t, spv_t)
+        counts2 = counts_from_ranks(ranks, t)
     starts = torch.cat([torch.zeros_like(ranks[:, :1]), ranks], dim=1)
     counts = counts2.reshape(r, m, s_round)
     tile_off = torch.cumsum(counts, 1, dtype=torch.int32) - counts
@@ -250,11 +243,6 @@ def _execute_packed(kw, vals, plan: SortPlan, pad_base0: int, *,
     ``pad_base0`` must exceed every payload already in ``vals``.
     Returns (kw, vals[, stats]).
     """
-    want = "cuda" if vals.is_cuda else "torch"
-    if plan.impl != want:
-        raise ValueError(
-            f"plan impl {plan.impl!r} cannot run on {vals.device} tensors"
-        )
     stats: list | None = [] if with_stats else None
     skw, sv, pad_base = _run_node([tuple(kw), vals], plan.root, pad_base0, stats)
     skw = tuple(w[:, :plan.length] for w in skw)
@@ -280,7 +268,7 @@ def _prepare(keys, cfg: SortConfig, device, ndim: int):
         raise ValueError(f"expected {ndim}-D keys, got shape {tuple(keys.shape)}")
     codec = codec_for(keys.dtype, cfg.descending)
     rows, length = (1, keys.shape[0]) if ndim == 1 else tuple(keys.shape)
-    plan = build_plan(length, keys.dtype, cfg, rows=rows, device=dev)
+    plan = build_plan(length, keys.dtype, cfg, rows=rows)
     return keys, codec, plan
 
 
@@ -362,17 +350,19 @@ def sort_with_stats(keys, cfg: SortConfig = DEFAULT_CONFIG, *, device=None):
     return codec.decode(tuple(w[0] for w in skw)), perm[0], stats
 
 
-def sort_planned(keys, plan: SortPlan):
+def sort_planned(keys, plan: SortPlan, *, device=None):
     """Sort with an explicit plan from :func:`repro_torch.core.plan.build_plan`.
 
     ``keys`` is 1-D (plan.rows == 1) or (B, L); it must match the plan's
-    signature and lie on the plan's device kind (CUDA for impl "cuda",
-    CPU for "torch").  Returns the sorted tensor (each row for 2-D).
+    signature.  The plan holds no device: ``device`` (None = "cuda";
+    "cpu" runs the plain versions) decides, and ``keys`` is moved there.
+    Returns the sorted tensor (each row for 2-D).
 
     Raises:
-        ValueError: when keys' shape, dtype or device do not match.
+        RuntimeError: for CUDA when it is not available.
+        ValueError: when keys' shape or dtype do not match.
     """
-    keys = torch.as_tensor(keys)
+    keys = torch.as_tensor(keys, device=resolve_device(device))
     shape = (1, keys.shape[0]) if keys.dim() == 1 else tuple(keys.shape)
     codec = codec_for(keys.dtype, plan.descending)
     if keys.dim() not in (1, 2) or shape != (plan.rows, plan.length) or (

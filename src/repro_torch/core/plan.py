@@ -12,7 +12,11 @@ JAX package's plan.  The TPU's VMEM blocking (``block_rows`` /
 their rows per CTA from the tile shape (``kernels/bitonic.py``
 ``effective_block_rows``, ``kernels/splitter.py``
 ``partition_block_rows``).  Rows are never padded (the TPU's sublane
-rule does not apply).
+rule does not apply).  A plan depends on shape, dtype and config only:
+the device of the tensors it runs on decides kernel or plain version.
+
+:func:`build_topk_plan` is the partial sort's one-round schedule
+(:class:`TopkPlan`, ``core/partial_sort.py``).
 """
 
 from __future__ import annotations
@@ -22,10 +26,9 @@ import functools
 import hashlib
 import json
 
-import torch
-
 from repro_torch.core.key_codec import codec_for
 from repro_torch.core.sort_config import SortConfig, next_pow2, round_up
+from repro_torch.kernels import bitonic
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +50,9 @@ class LevelPlan:
             (bucket levels only; 0 for direct).
         s_round: buckets this round.
         cap: per-bucket capacity round_up(lp/s_round + lp/s, 128).
+        fuse_ranking: bucket levels: rank splitters and count buckets
+            with K2 (True) or rank with K3 and count from the ranks
+            (False); False on direct levels, as in the JAX plan.
     """
 
     kind: str
@@ -58,6 +64,7 @@ class LevelPlan:
     m: int = 0
     s_round: int = 0
     cap: int = 0
+    fuse_ranking: bool = False
     sample_plan: "LevelPlan | None" = None
     bucket_plan: "LevelPlan | None" = None
 
@@ -69,8 +76,6 @@ class SortPlan:
     Attributes:
         rows / length: entry shape (rows = 1 for the 1-D API).
         dtype_name / num_words / descending: key codec identity.
-        impl: "cuda" (kernels, CUDA tensors) or "torch" (plain
-            versions, CPU tensors).
         cfg_fingerprint: hash of the generating config.
         root: the level tree the executor walks.
     """
@@ -80,7 +85,6 @@ class SortPlan:
     dtype_name: str
     num_words: int
     descending: bool
-    impl: str
     cfg_fingerprint: str
     root: LevelPlan
 
@@ -98,7 +102,7 @@ class SortPlan:
         lines = [
             f"SortPlan(rows={self.rows}, length={self.length}, "
             f"dtype={self.dtype_name}{' desc' if self.descending else ''}, "
-            f"impl={self.impl}, levels={self.num_levels})"
+            f"levels={self.num_levels})"
         ]
         node, depth = self.root, 0
         while node is not None:
@@ -152,6 +156,7 @@ def _build_node(rows: int, length: int, cfg: SortConfig) -> LevelPlan:
     return LevelPlan(
         kind="bucket", rows=rows, length=length, lp=lp,
         tile=t, s=sper, m=m, s_round=s_round, cap=cap,
+        fuse_ranking=cfg.fuse_ranking,
         sample_plan=_build_node(rows, m * sper, cfg),
         bucket_plan=_build_node(rows * s_round, cap, cfg),
     )
@@ -159,52 +164,131 @@ def _build_node(rows: int, length: int, cfg: SortConfig) -> LevelPlan:
 
 @functools.lru_cache(maxsize=512)
 def _assemble_plan(rows: int, length: int, dtype_name: str, nw: int,
-                   descending: bool, cfg: SortConfig, impl: str) -> SortPlan:
+                   descending: bool, cfg: SortConfig) -> SortPlan:
     return SortPlan(
         rows=rows, length=length, dtype_name=dtype_name, num_words=nw,
-        descending=descending, impl=impl,
-        cfg_fingerprint=config_fingerprint(cfg),
+        descending=descending, cfg_fingerprint=config_fingerprint(cfg),
         root=_build_node(max(rows, 1), length, cfg),
     )
 
 
-def resolve_impl(cfg: SortConfig, device) -> str:
-    """The plan's impl for a device (None means "cuda").
-
-    Raises:
-        ValueError: when ``cfg.impl`` names the other device's route.
-    """
-    want = "cuda" if torch.device(device or "cuda").type == "cuda" else "torch"
-    if cfg.impl not in (None, want):
-        raise ValueError(
-            f"SortConfig.impl={cfg.impl!r} does not run on device "
-            f"{device or 'cuda'}: kernels take CUDA tensors, the plain "
-            "versions CPU tensors"
-        )
-    return want
-
-
-def build_plan(length: int, dtype, cfg: SortConfig, *, rows: int = 1,
-               device=None) -> SortPlan:
+def build_plan(length: int, dtype, cfg: SortConfig, *,
+               rows: int = 1) -> SortPlan:
     """Static schedule for sorting ``rows`` rows of ``length`` keys of
-    ``dtype`` (a torch dtype or its name) on ``device`` (None = cuda).
+    ``dtype`` (a torch dtype or its name).
 
     Pure and memoized: equal arguments give the same plan object.
 
     Example:
         >>> from repro_torch.core.plan import build_plan
         >>> from repro_torch.core.sort_config import SortConfig
-        >>> p = build_plan(100_000, "int32", SortConfig(), device="cpu")
+        >>> p = build_plan(100_000, "int32", SortConfig())
         >>> (p.root.kind, p.root.m, p.root.s_round, p.root.cap)
         ('bucket', 25, 64, 3200)
     """
     codec = codec_for(dtype, cfg.descending)
     return _assemble_plan(rows, length, codec.dtype_name, codec.num_words,
-                          cfg.descending, cfg, resolve_impl(cfg, device))
+                          cfg.descending, cfg)
 
 
 def build_words_plan(length: int, num_words: int, cfg: SortConfig, *,
-                     rows: int = 1, device=None) -> SortPlan:
+                     rows: int = 1) -> SortPlan:
     """Plan for callers holding canonical key words (always ascending)."""
     return _assemble_plan(rows, length, f"int32x{num_words}", num_words,
-                          False, cfg, resolve_impl(cfg, device))
+                          False, cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class TopkPlan:
+    """Static schedule of the partial sort: one bucket round (tile sort
+    with samples, sample sort, splitter ranks), the candidate pack and
+    the candidate sort (``core/partial_sort.py``).
+
+    Attributes:
+        rows: batch rows (1 for the 1-D entry).
+        length: scores per row.
+        k: requested top-k.
+        lp: length padded to a tile multiple.
+        m: tiles per row.
+        tile / s: tile width and samples per tile.
+        cap: the bucket-capacity bound round_up(2*lp/s, 128) that the
+            threshold argument relies on.
+        ccap: candidate-buffer width round_up(min(k + cap, lp), 128).
+        direct_max: rows up to this length are sorted whole instead.
+        sample_plan / final_plan: how the (rows, m*s) sample rows and the
+            rows sorted last (the (rows, ccap) candidates, or the whole
+            (rows, length) rows on the direct path) are sorted.  None:
+            the row, padded to a power of two, fits one K1 tile
+            (``bitonic.MAX_TILE``).  Otherwise the bucket-sort plan the
+            executor runs on the row, from the caller's config.
+            ``sample_plan`` is None on the direct path.
+    """
+
+    rows: int
+    length: int
+    k: int
+    lp: int
+    m: int
+    tile: int
+    s: int
+    cap: int
+    ccap: int
+    direct_max: int
+    sample_plan: SortPlan | None = None
+    final_plan: SortPlan | None = None
+
+
+_INT_MAX = 2**31 - 1
+
+
+@functools.lru_cache(maxsize=512)
+def _assemble_topk_plan(length: int, k: int, cfg: SortConfig, rows: int,
+                        num_words: int, max_tile: int) -> TopkPlan:
+    t, sper = cfg.tile, cfg.s
+    lp = round_up(length, t)
+    cap = round_up(2 * lp // sper, 128)
+    ccap = round_up(min(k + cap, lp), 128)
+
+    def row_plan(width: int) -> SortPlan | None:
+        if next_pow2(width) <= max_tile:
+            return None
+        # The executor needs distinct pairs, so each pad of such a row
+        # gets the int32 payload length + its column (partial_sort).
+        if length + width > _INT_MAX:
+            raise ValueError(
+                f"top-k of rows of {length} keys: a {width}-wide row's pad "
+                f"payloads (length + column) would overflow int32"
+            )
+        return build_words_plan(width, num_words, cfg, rows=rows)
+
+    direct = length <= cfg.direct_max
+    return TopkPlan(
+        rows=rows, length=length, k=k, lp=lp, m=lp // t, tile=t, s=sper,
+        cap=cap, ccap=ccap, direct_max=cfg.direct_max,
+        sample_plan=None if direct else row_plan(lp // t * sper),
+        final_plan=row_plan(length if direct else ccap),
+    )
+
+
+def build_topk_plan(length: int, k: int, dtype, cfg: SortConfig, *,
+                    rows: int = 1) -> TopkPlan:
+    """Static schedule for :func:`repro_torch.core.partial_sort.topk`
+    (``rows`` = 1) and ``topk_batched`` (``rows`` = B).
+
+    Pure and memoized like :func:`build_plan` (``bitonic.MAX_TILE`` is
+    part of the key).  Lengths up to ``cfg.direct_max`` take the direct
+    path and never read the bucket fields.  Which rows K1 sorts and
+    which the bucket-sort executor sorts is decided here, from the shape
+    alone.
+
+    Raises:
+        ValueError: unless 1 <= k <= length; or when a row too wide for
+            K1 would need pad payloads past int32 (length near 2^31).
+        TypeError: for a dtype without a key codec.
+    """
+    codec = codec_for(dtype, descending=True)
+    if not 1 <= k <= length:
+        raise ValueError(f"top-k needs 1 <= k <= length, got k={k}, "
+                         f"length={length}")
+    return _assemble_topk_plan(length, k, cfg, rows, codec.num_words,
+                               bitonic.MAX_TILE)

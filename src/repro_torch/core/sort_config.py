@@ -30,7 +30,6 @@ def round_up(x: int, mult: int) -> int:
 _NOT_YET_PORTED = (
     ("strategy", "bitonic", "Queue 1 item 6 (local-sort strategies)"),
     ("relocation", "gather", "Queue 1 item 4 (scatter relocation)"),
-    ("fuse_ranking", True, "Queue 1 item 5 (kernel K3, splitter_ranks)"),
     ("fuse_sampling", True, "Queue 1 item 4 (unfused sampling)"),
     ("plan", "default", "Queue 1 item 9 (autotune and plan files)"),
     ("check", "off", "Queue 1 item 7 (guarded execution)"),
@@ -47,19 +46,21 @@ class SortConfig:
     s: samples per tile == most buckets per round.
     direct_max: rows up to this length are sorted directly as one
         tile instead of going through a bucket round.
-    impl: None (follow the device), "cuda" (kernels; CUDA tensors
-        only) or "torch" (plain versions; CPU tensors only).
-    fuse_sampling / fuse_ranking / relocation / strategy / plan /
-    check: as in the JAX package; only the defaults run in the port
-        (the strategy knobs radix_bits / merge_run come with the
-        strategies).
+    fuse_ranking: True ranks splitters and counts buckets in one
+        kernel (K2, splitter partition); False ranks them with K3
+        (splitter ranks) and derives the counts from the ranks.
+    fuse_sampling / relocation / strategy / plan / check: as in the
+        JAX package; only the defaults run in the port (the strategy
+        knobs radix_bits / merge_run come with the strategies).
     descending: stable descending order through the codec.
+
+    There is no ``impl``: the device of the tensors alone decides
+    whether a kernel or its plain version runs.
     """
 
     tile: int = 4096
     s: int = 64
     direct_max: int = 8192
-    impl: str | None = None
     fuse_sampling: bool = True
     fuse_ranking: bool = True
     relocation: str = "gather"
@@ -92,11 +93,6 @@ class SortConfig:
             raise ValueError(
                 f"SortConfig.direct_max ({self.direct_max}) must be >= "
                 f"SortConfig.tile ({self.tile})"
-            )
-        if self.impl not in (None, "cuda", "torch"):
-            raise ValueError(
-                f'SortConfig.impl must be None, "cuda" or "torch", '
-                f"got {self.impl!r}"
             )
         if self.relocation not in ("gather", "scatter"):
             raise ValueError(

@@ -40,7 +40,7 @@ def _node_tree(node) -> tuple | None:
         return None
     return (
         node.kind, node.rows, node.length, node.lp, node.tile, node.s,
-        node.m, node.s_round, node.cap,
+        node.m, node.s_round, node.cap, node.fuse_ranking,
         _node_tree(node.sample_plan), _node_tree(node.bucket_plan),
     )
 
@@ -48,10 +48,9 @@ def _node_tree(node) -> tuple | None:
 def plan_tree(plan) -> tuple:
     """Nested tuple of a plan's algorithmic fields: (rows, length,
     num_words, root) with each node as (kind, rows, length, lp, tile, s,
-    m, s_round, cap, sample subtree, bucket subtree).
+    m, s_round, cap, fuse_ranking, sample subtree, bucket subtree).
 
     Works on this package's :class:`SortPlan` and, field for field, on
     the JAX package's plans, so the two can be compared for equality.
     """
     return (plan.rows, plan.length, plan.num_words, _node_tree(plan.root))
-

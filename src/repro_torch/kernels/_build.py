@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 its own by ``nvcc`` into ``build/repro_torch_kernels/<name>-<hash>.so``
 at the root of the checkout (listed in ``.gitignore``), at first use.
-The hash covers the source and the flags, so an edited source never
-loads a stale library.  Nothing is built when the package is imported:
+The hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header never loads a stale library.  Nothing is built when the package is imported:
 the first call of a kernel wrapper builds what it needs, and
 :func:`build` compiles several sources at once, one ``nvcc`` each.
 """
@@ -20,7 +20,7 @@ import tempfile
 import threading
 from pathlib import Path
 
-SOURCES = ("tile_sort", "splitter_partition")
+SOURCES = ("tile_sort", "splitter_partition", "splitter_ranks", "topk")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -60,6 +60,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
     src = (_CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()[:12]
     return _BUILD_DIR / f"{name}-{digest}.so"
 

@@ -10,8 +10,8 @@
 // payload (rows_per_cta > 1 only when T is small, so that a CTA still holds
 // about 2048 elements).  Key words are the port's biased int32 words, so the
 // lexicographic order on (*words, payload) is plain signed int32 order word
-// by word.  The network is the reference's: element i pairs with i ^ d, the
-// pair is ascending iff (i & size) == 0 within its row.
+// by word.  The network is the reference's, in bitonic_network.cuh (shared
+// with K4, topk.cu).
 //
 // Bound on the H100: every element is read once and written once, so the
 // bytes bound is 2 * (nw + 1) * 4 * m * T over 3.35 TB/s.  The network does
@@ -28,25 +28,9 @@
 
 #include <cuda_runtime.h>
 
+#include "bitonic_network.cuh"
+
 namespace {
-
-template <int NW>
-__device__ __forceinline__ bool lex_gt(const int* s0, const int* s1,
-                                       const int* sv, int i, int j) {
-  const int a0 = s0[i], b0 = s0[j];
-  if (a0 != b0) return a0 > b0;
-  if (NW == 2) {
-    const int a1 = s1[i], b1 = s1[j];
-    if (a1 != b1) return a1 > b1;
-  }
-  return sv[i] > sv[j];
-}
-
-__device__ __forceinline__ void swap_at(int* s, int i, int j) {
-  const int t = s[i];
-  s[i] = s[j];
-  s[j] = t;
-}
 
 template <int NW, bool SAMPLE>
 __global__ void tile_sort_kernel(const int* __restrict__ k0,
@@ -70,25 +54,7 @@ __global__ void tile_sort_kernel(const int* __restrict__ k0,
   }
   __syncthreads();
 
-  const int half = E >> 1;
-  for (int size = 2; size <= T; size <<= 1) {
-    for (int d = size >> 1; d > 0; d >>= 1) {
-      for (int p = threadIdx.x; p < half; p += blockDim.x) {
-        // p-th pair: insert a zero bit at position log2(d) to get its low
-        // element i; the high element is i | d (== i ^ d).
-        const int i = ((p & ~(d - 1)) << 1) | (p & (d - 1));
-        const int j = i | d;
-        // (i & (T - 1)) is the index within the row.
-        const bool asc = ((i & (T - 1)) & size) == 0;
-        if (lex_gt<NW>(s0, s1, sval, i, j) == asc) {
-          swap_at(s0, i, j);
-          if (NW == 2) swap_at(s1, i, j);
-          swap_at(sval, i, j);
-        }
-      }
-      __syncthreads();
-    }
-  }
+  repro::bitonic_sort_rows<NW>(s0, s1, sval, E, T);
 
   for (int i = threadIdx.x; i < E; i += blockDim.x) {
     ok0[base + i] = s0[i];

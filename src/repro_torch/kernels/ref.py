@@ -1,4 +1,4 @@
-"""Torch oracles for K1 and K2, independent of the kernels' formulations.
+"""Torch oracles for K1-K4, independent of the kernels' formulations.
 
 Lexicographic order on ``(*words, payload)`` comes from stable
 ``torch.sort`` passes, least significant word first.  The tests and
@@ -39,11 +39,11 @@ def sort_tiles_sample_kv(keys, vals, *, num_samples: int):
     return sk, sv, like_words(sw, keys), take_samples(sv, num_samples)
 
 
-def splitter_partition(keys, vals, sp_keys, sp_vals):
-    """(ranks (m, S), counts (m, S+1)) by merging: each tile's elements
-    and its splitters are sorted together, splitters before equal
-    elements, and a splitter's rank is the number of tile elements
-    ahead of it."""
+def splitter_ranks(keys, vals, sp_keys, sp_vals):
+    """(m, S) ranks by merging: each tile's elements and its splitters
+    are sorted together, splitters before equal elements, and a
+    splitter's rank is the number of tile elements ahead of it.  Holds
+    for tiles and splitters in any order."""
     words, sp_words = as_words(keys), as_words(sp_keys)
     m, t = vals.shape
     s = sp_vals.shape[1]
@@ -61,7 +61,25 @@ def splitter_partition(keys, vals, sp_keys, sp_vals):
     # Position of every merged column in the sorted order (inverse of idx).
     pos = torch.empty_like(idx)
     pos.scatter_(1, idx, torch.arange(t + s, device=vals.device).expand(m, -1))
-    ranks = torch.gather(elems_before, 1, pos[:, t:]).to(torch.int32)
+    return torch.gather(elems_before, 1, pos[:, t:]).to(torch.int32)
+
+
+def splitter_partition(keys, vals, sp_keys, sp_vals):
+    """(ranks (m, S), counts (m, S+1)): :func:`splitter_ranks` and the
+    bucket sizes ends - starts of each tile."""
+    ranks = splitter_ranks(keys, vals, sp_keys, sp_vals)
+    t = vals.shape[1]
     zero = torch.zeros_like(ranks[:, :1])
     counts = torch.cat([ranks, zero + t], 1) - torch.cat([zero, ranks], 1)
     return ranks, counts
+
+
+def topk_desc(keys, k: int):
+    """Per row of (R, C) words, the k smallest keys on (*words, column)
+    and their columns, by a stable lexicographic sort."""
+    words = as_words(keys)
+    r, c = words[0].shape
+    idx = torch.arange(c, dtype=torch.int32, device=words[0].device).expand(r, c)
+    order = lex_order(words + (idx,))[:, :k]
+    top = tuple(torch.gather(w, 1, order) for w in words)
+    return like_words(top, keys), torch.gather(idx, 1, order)

@@ -33,10 +33,11 @@ GEOMETRY = dict(tile=256, s=16, direct_max=512)
 DTYPES = ["int32", "uint32", "float32", "bfloat16", "int64", "float64"]
 
 
-def configs(order="asc"):
+def configs(order="asc", fuse_ranking=True):
     desc = order == "desc"
-    return (JaxConfig(**GEOMETRY, impl="xla", descending=desc),
-            SortConfig(**GEOMETRY, descending=desc))
+    return (JaxConfig(**GEOMETRY, impl="xla", descending=desc,
+                      fuse_ranking=fuse_ranking),
+            SortConfig(**GEOMETRY, descending=desc, fuse_ranking=fuse_ranking))
 
 
 def reference(fn, *args, dtype="int32"):
@@ -76,11 +77,29 @@ def test_sort_and_argsort_match_reference(dtype, order):
     np.testing.assert_array_equal(perm.numpy(), want_perm)
 
 
+@pytest.mark.parametrize("dtype", ["int32", "float32", "bfloat16", "int64", "float64"])
+def test_unfused_ranking_matches_reference(dtype):
+    """fuse_ranking=False: K3 ranks and counts from the ranks, against the
+    JAX pipeline with the same config, stats included."""
+    rng = np.random.default_rng(100 + DTYPES.index(dtype))
+    a = make_keys(dtype, 20_000, rng)
+    jcfg, cfg = configs("desc" if dtype == "float32" else "asc", fuse_ranking=False)
+    want = reference(lambda x: jax_sort.sort_with_stats(x, jcfg), a, dtype=dtype)
+    got = bucket_sort.sort_with_stats(to_torch(a), cfg, device="cpu")
+    np.testing.assert_array_equal(bits(got[0]), bits(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    assert_stats_equal(got[2], want[2])
+    assert len(got[2]) == 2
+    np.testing.assert_array_equal(
+        bits(bucket_sort.sort(to_torch(a), cfg, device="cpu")), bits(want[0]))
+
+
+@pytest.mark.parametrize("fuse_ranking", [True, False], ids=["fused", "unfused"])
 @pytest.mark.parametrize("n", [1, 5, 256, 512, 513, 4097, 77_777])
-def test_sizes_and_stats_match_reference(n):
+def test_sizes_and_stats_match_reference(n, fuse_ranking):
     rng = np.random.default_rng(n)
     a = rng.integers(-40, 40, n).astype(np.int32)  # many ties: stability
-    jcfg, cfg = configs()
+    jcfg, cfg = configs(fuse_ranking=fuse_ranking)
     want = reference(lambda x: jax_sort.sort_with_stats(x, jcfg), a)
     got = bucket_sort.sort_with_stats(torch.from_numpy(a), cfg, device="cpu")
     np.testing.assert_array_equal(got[0].numpy(), want[0])
@@ -157,15 +176,14 @@ def test_sort_planned_runs_an_explicit_plan():
     rng = np.random.default_rng(9)
     a = torch.from_numpy(rng.integers(0, 100, (4, 600)).astype(np.int32))
     _, cfg = configs()
-    plan = build_plan(600, torch.int32, cfg, rows=4, device="cpu")
-    got = bucket_sort.sort_planned(a, plan)
+    plan = build_plan(600, torch.int32, cfg, rows=4)
+    got = bucket_sort.sort_planned(a, plan, device="cpu")
     assert torch.equal(got, torch.sort(a, dim=1, stable=True).values)
-    one = build_plan(600, torch.int32, cfg, device="cpu")
-    assert torch.equal(bucket_sort.sort_planned(a[0], one), got[0])
+    one = build_plan(600, torch.int32, cfg)
+    assert torch.equal(bucket_sort.sort_planned(a[0].numpy(), one, device="cpu"),
+                       got[0])
     with pytest.raises(ValueError, match="do not match plan"):
-        bucket_sort.sort_planned(a[:, :500], plan)
-    with pytest.raises(ValueError, match="plan impl 'cuda'"):
-        bucket_sort.sort_planned(a, build_plan(600, torch.int32, cfg, rows=4))
+        bucket_sort.sort_planned(a[:, :500], plan, device="cpu")
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -176,8 +194,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
             fn(x)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bucket_sort.sort_batched(x.reshape(2, 5))
-    with pytest.raises(ValueError, match="SortConfig.impl='cuda'"):
-        bucket_sort.sort(x, SortConfig(impl="cuda"), device="cpu")
+    # A plan holds no device: sort_planned of a CPU tensor (or an array)
+    # runs on the CPU only when asked to.
+    plan = build_plan(10, torch.int32, SortConfig())
+    for keys in (x, x.numpy(), x.tolist()):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            bucket_sort.sort_planned(keys, plan)
+    assert torch.equal(bucket_sort.sort_planned(x.flip(0), plan, device="cpu"), x)
 
 
 def test_trivial_shapes():

@@ -79,9 +79,95 @@ def test_main_path_equals_stable_torch_sort(cuda, dtype):
     ops.reset_launch_counts()
     perm = bucket_sort.argsort(x)
     torch.cuda.synchronize()
-    assert all(c > 0 for c in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert counts["tile_sort"] > 0 and counts["splitter_partition"] > 0
     assert torch.equal(perm.long(), torch.sort(x, stable=True).indices)
     assert torch.equal(bucket_sort.sort(x), torch.sort(x, stable=True).values)
+
+
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+@pytest.mark.parametrize("t,num_splitters", [(4096, 63), (64, 3), (256, 1100)])
+def test_splitter_ranks_kernel_equals_plain_version(cuda, t, num_splitters, order, nw):
+    """K3 counts: right on unsorted tiles and unsorted splitters, and on
+    more splitters than it stages in shared memory at once (1024)."""
+    from repro_torch.kernels import bitonic, ref, splitter
+
+    m = max(1, (1 << 18) // t)
+    words, vals = tiles(cuda, m, t, nw)
+    pick = torch.randint(0, t, (m, num_splitters), generator=cuda, device="cuda")
+    if order == "sorted":
+        words, vals = bitonic.sort_tiles_kv(words, vals)
+        pick = torch.sort(pick, dim=1).values
+    sp = tuple(torch.gather(w, 1, pick) for w in words)
+    spv = torch.gather(vals, 1, pick) + torch.randint(
+        -1, 2, pick.shape, generator=cuda, device="cuda", dtype=torch.int32)
+    before = splitter.RANKS_LAUNCHES.count
+    got = splitter.splitter_ranks_cuda(words, vals, sp, spv)
+    torch.cuda.synchronize()
+    assert splitter.RANKS_LAUNCHES.count == before + 1
+    assert torch.equal(got, splitter.splitter_ranks(words, vals, sp, spv))
+    assert torch.equal(got, ref.splitter_ranks(words, vals, sp, spv))
+
+
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("c,k", [(1, 1), (16, 6), (128, 8), (1024, 1), (16384, 50)])
+def test_topk_kernel_equals_plain_version(cuda, c, k, nw):
+    from repro_torch.kernels import ref, topk
+
+    rows = max(3, (1 << 18) // c) + 1  # not a multiple of the rows per CTA
+    words, _ = tiles(cuda, rows, c, nw)
+    before = topk.LAUNCHES.count
+    got = topk.topk_desc_cuda(words, k)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES.count == before + 1
+    for want in (topk.topk_desc(words, k), ref.topk_desc(words, k)):
+        assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+        assert torch.equal(got[1], want[1])
+
+
+def test_top_k_entry_points_equal_stable_descending_sort(cuda):
+    """topk_batched, topk and ops.topk on the card against stable
+    descending torch.sort, whose ties go to the smaller index."""
+    from repro_torch.core import partial_sort
+    from repro_torch.kernels import ops
+
+    x = torch.randn((8, 151_936), generator=cuda, device="cuda")
+    x = x.to(torch.bfloat16).float()  # ties
+    want = torch.sort(x, dim=1, descending=True, stable=True)
+    ops.reset_launch_counts()
+    v, i = partial_sort.topk_batched(x, 50)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["tile_sort"] == 3 and counts["splitter_ranks"] == 1
+    assert torch.equal(v, want.values[:, :50])
+    assert torch.equal(i.long(), want.indices[:, :50])
+    v, i = partial_sort.topk_batched(x[:, :1], 1)  # one column: K1 at T = 2
+    assert torch.equal(v, x[:, :1]) and not i.any()
+    flat = x.reshape(-1)[: 1 << 20]
+    v, i = partial_sort.topk(flat, 1024)
+    want = torch.sort(flat, descending=True, stable=True)
+    assert torch.equal(v, want.values[:1024])
+    assert torch.equal(i.long(), want.indices[:1024])
+    r = x[:, :128].reshape(-1, 64)
+    v, i = ops.topk(r, 6)
+    want = torch.sort(r, dim=1, descending=True, stable=True)
+    assert torch.equal(v, want.values[:, :6])
+    assert torch.equal(i.long(), want.indices[:, :6])
+
+
+def test_unfused_ranking_sort_equals_stable_torch_sort(cuda):
+    from repro_torch.core import SortConfig, bucket_sort
+    from repro_torch.kernels import ops
+
+    x = torch.randint(-1000, 1000, (300_000,), generator=cuda, device="cuda",
+                      dtype=torch.int32)
+    ops.reset_launch_counts()
+    out = bucket_sort.sort(x, SortConfig(fuse_ranking=False))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["splitter_ranks"] > 0 and counts["splitter_partition"] == 0
+    assert torch.equal(out, torch.sort(x, stable=True).values)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):

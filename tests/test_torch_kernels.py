@@ -3,9 +3,15 @@
 K1's plain version (``bitonic_network_rows``) and the CPU dispatch of
 ``ops.sort_tiles_sample`` are held bit for bit against the JAX package's
 pure-jnp network and its ``kernels/ref`` oracle; K2's plain
-``splitter_partition`` against ``kernels/ref.splitter_partition``.  The
-CUDA kernels themselves run only on the card: ``tests/test_torch_chip.py``
-and ``chip_smoke.py`` hold them against these plain versions there.
+``splitter_partition`` against ``kernels/ref.splitter_partition``; K3's
+plain ``splitter_ranks`` against ``kernels/ref.splitter_ranks`` and the
+reference's ``_lt_matrix`` sum, on sorted and unsorted tiles; K4's plain
+``topk_desc`` against the reference's Pallas ``topk_desc`` in interpret
+mode (it sets no TPU compiler parameters, so it runs on this JAX) and
+its ``ref.topk_desc``; ``ops.topk`` against the reference's
+``ops.topk(impl="xla")``.  The CUDA kernels themselves run only on the
+card: ``tests/test_torch_chip.py`` and ``chip_smoke.py`` hold them
+against these plain versions there.
 """
 
 import pytest
@@ -15,16 +21,23 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import ast  # noqa: E402
+import contextlib  # noqa: E402
+import shutil  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from test_torch_codec import bits, make_keys, to_torch  # noqa: E402
+
 from repro.kernels import bitonic as jax_bitonic  # noqa: E402
+from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels import splitter as jax_splitter  # noqa: E402
+from repro.kernels import topk as jax_topk  # noqa: E402
 from repro_torch.interop import words_from_numpy, words_to_numpy  # noqa: E402
-from repro_torch.kernels import _build, bitonic, ops, ref, splitter  # noqa: E402
+from repro_torch.kernels import _build, bitonic, ops, ref, splitter, topk  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -130,6 +143,140 @@ def test_plain_splitter_partition_chunks_rows(monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(whole, chunked))
 
 
+def x64(nw: int):
+    return jax.enable_x64(True) if nw == 2 else contextlib.nullcontext()
+
+
+def real_and_stray_splitters(words, vals, s, rng, *, sort_splitters):
+    """(m, s) splitters per tile: elements of the tile itself (ties with
+    tile elements), some with their payload moved by one, and values
+    outside the tile's range; sorted along each row or not."""
+    m, t = vals.shape
+    pick = rng.integers(0, t, (m, s))
+    if sort_splitters:
+        pick = np.sort(pick, axis=1)
+    sp_words = tuple(np.take_along_axis(w, pick, 1) for w in words)
+    sp_vals = np.take_along_axis(vals, pick, 1) + rng.integers(-1, 2, (m, s)).astype(
+        np.int32)
+    sp_words[0][:, 0] = np.uint32(0)
+    sp_words[0][:, -1] = np.uint32(0xFFFFFFFF)
+    return sp_words, sp_vals
+
+
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+@pytest.mark.parametrize("t,s", [(64, 3), (256, 15), (4096, 63)])
+def test_plain_splitter_ranks_matches_reference(t, s, order, nw):
+    """K3 counts, so it holds on unsorted tiles and unsorted splitters."""
+    rng = np.random.default_rng(3 * t + s + nw)
+    m = 3
+    words, vals = make_tiles(m, t, nw, rng, distinct=4)
+    if order == "sorted":
+        out = jax_ref.sort_tiles_kv(tuple(map(jnp.asarray, words)), jnp.asarray(vals))
+        words, vals = tuple(np.array(w) for w in out[0]), np.array(out[1])
+    sp_words, sp_vals = real_and_stray_splitters(
+        words, vals, s, rng, sort_splitters=order == "sorted")
+    jargs = (tuple(map(jnp.asarray, words)), jnp.asarray(vals),
+             tuple(map(jnp.asarray, sp_words)), jnp.asarray(sp_vals))
+    with x64(nw):
+        want = np.asarray(jax_ref.splitter_ranks(*jargs))
+        lt = np.asarray(jax_splitter._lt_matrix(*jargs).sum(axis=1, dtype=jnp.int32))
+    np.testing.assert_array_equal(lt, want)
+    args = (words_from_numpy(words), torch.from_numpy(vals),
+            words_from_numpy(sp_words), torch.from_numpy(sp_vals))
+    for got in (splitter.splitter_ranks(*args), ops.splitter_ranks(*args),
+                ref.splitter_ranks(*args)):
+        assert got.dtype == torch.int32 and got.shape == (m, s)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(splitter.splitter_partition(*args)[0],
+                       splitter.splitter_ranks(*args))
+
+
+def test_plain_splitter_ranks_chunks_rows(monkeypatch):
+    rng = np.random.default_rng(12)
+    words, vals = make_tiles(9, 64, 2, rng)
+    sp_words, sp_vals = real_and_stray_splitters(words, vals, 5, rng,
+                                                 sort_splitters=False)
+    args = (words_from_numpy(words), torch.from_numpy(vals),
+            words_from_numpy(sp_words), torch.from_numpy(sp_vals))
+    whole = splitter.splitter_ranks(*args)
+    monkeypatch.setattr(splitter, "_PLAIN_CHUNK", 64 * 5 * 2)
+    assert torch.equal(splitter.splitter_ranks(*args), whole)
+    empty = splitter.splitter_ranks(*(a[:0] if isinstance(a, torch.Tensor)
+                                      else tuple(w[:0] for w in a) for a in args))
+    assert empty.shape == (0, 5) and empty.dtype == torch.int32
+
+
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("k", [1, 2, 6, 8])
+@pytest.mark.parametrize("c", [16, 64, 128])
+def test_plain_topk_desc_matches_reference(c, k, nw):
+    """Heavy ties (word 0 from four values): the column breaks them."""
+    rng = np.random.default_rng(c + 10 * k + nw)
+    words, _ = make_tiles(8, c, nw, rng, distinct=4)
+    jwords = tuple(map(jnp.asarray, words))
+    with x64(nw):
+        want = jax_topk.topk_desc(jwords, k=k, block_rows=8, interpret=True)
+        want_ref = jax_ref.topk_desc(jwords, k=k)
+        want = (tuple(np.asarray(w) for w in want[0]), np.asarray(want[1]))
+    for a, b in zip(want[0] + (want[1],), want_ref[0] + (want_ref[1],)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    for fn in (topk.topk_desc, ref.topk_desc):
+        got_w, got_i = fn(words_from_numpy(words), k)
+        assert_words_equal(got_w, want[0])
+        assert got_i.dtype == torch.int32
+        np.testing.assert_array_equal(got_i.numpy(), want[1])
+    if nw == 1:  # a bare tensor keeps its structure
+        got_w, got_i = topk.topk_desc(words_from_numpy(words)[0], k)
+        assert isinstance(got_w, torch.Tensor)
+        np.testing.assert_array_equal(words_to_numpy(got_w)[0], want[0][0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32", "int64"])
+@pytest.mark.parametrize("shape,k", [((6, 100), 7), ((5, 16), 16), ((3, 1), 1)])
+def test_ops_topk_matches_reference(dtype, shape, k):
+    rng = np.random.default_rng(sum(shape) + k)
+    a = make_keys(dtype, shape[0] * shape[1], rng).reshape(shape)
+    if dtype == "int32":
+        a = (a % 5).astype(np.int32)  # ties
+    with x64(2 if dtype == "int64" else 1):
+        want = jax_ops.topk(jnp.asarray(a), k, impl="xla")
+        want = tuple(np.asarray(w) for w in want)
+    got = ops.topk(to_torch(a), k, device="cpu")
+    assert got[0].dtype == to_torch(a).dtype and got[1].dtype == torch.int32
+    np.testing.assert_array_equal(bits(got[0]), bits(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+
+
+def test_ops_topk_refuses_what_it_does_not_take(monkeypatch):
+    x = torch.zeros((2, 100))
+    for k in (0, 101):
+        with pytest.raises(ValueError, match="1 <= k"):
+            ops.topk(x, k, device="cpu")
+    with pytest.raises(ValueError, match=r"\(R, C\)"):
+        ops.topk(torch.zeros(100), 2, device="cpu")
+    with pytest.raises(ValueError, match="16384 columns.*topk_batched"):
+        ops.topk(torch.zeros((1, 16385)), 2, device="cpu")
+    assert ops.topk(torch.zeros((1, 16384)), 2, device="cpu")[1].tolist() == [[0, 1]]
+    monkeypatch.setattr(bitonic, "MAX_TILE", 64)
+    with pytest.raises(ValueError, match="64 columns"):
+        ops.topk(x, 2, device="cpu")
+    # An entry point: None means "cuda", for a CPU tensor or an array too.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for scores in (x, x.numpy()):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ops.topk(scores, 2)
+    assert ops.topk(x.numpy()[:, :8], 2, device="cpu")[1].tolist() == [[0, 1]] * 2
+
+
+def test_topk_rows_per_cta():
+    assert topk.rows_per_cta(65536, 128) == 16
+    assert topk.rows_per_cta(65536, 64) == 32
+    assert topk.rows_per_cta(3, 16) == 4
+    assert topk.rows_per_cta(1, 16) == 1
+    assert topk.rows_per_cta(100, 16384) == 1
+
+
 def test_kernel_wrappers_take_cuda_tensors_only():
     w = torch.zeros((2, 64), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors only"):
@@ -138,6 +285,12 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         bitonic.sort_tiles_sample_kv((w, w), w, num_samples=4)
     with pytest.raises(ValueError, match="CUDA tensors"):
         splitter.splitter_partition_cuda(w, w, w[:, :3], w[:, :3])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        splitter.splitter_ranks_cuda(w, w, w[:, :3], w[:, :3])
+    with pytest.raises(ValueError, match="1 or 2 key words"):
+        splitter.splitter_ranks_cuda((w, w, w), w, (w, w, w), w)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        topk.topk_desc_cuda(w, 2)
     with pytest.raises(ValueError, match="1 or 2 key words"):
         bitonic.sort_tiles_kv((w, w, w), w)
 
@@ -154,7 +307,12 @@ def test_cpu_dispatch_launches_nothing():
     words, vals = make_tiles(2, 64, 1, rng)
     ops.sort_tiles_sample(words_from_numpy(words), torch.from_numpy(vals),
                           num_samples=4)
-    assert ops.launch_counts() == {"tile_sort": 0, "splitter_partition": 0}
+    ops.splitter_ranks(words_from_numpy(words), torch.from_numpy(vals),
+                       words_from_numpy(words)[0][:, :3].contiguous(),
+                       torch.from_numpy(vals[:, :3].copy()))
+    ops.topk(torch.zeros((3, 5)), 2, device="cpu")
+    assert ops.launch_counts() == {"tile_sort": 0, "splitter_partition": 0,
+                                   "splitter_ranks": 0, "topk": 0}
 
 
 def test_build_needs_nvcc_and_keys_libraries_by_source(tmp_path, monkeypatch):
@@ -167,6 +325,25 @@ def test_build_needs_nvcc_and_keys_libraries_by_source(tmp_path, monkeypatch):
     assert a.parent == tmp_path and a.name.startswith("tile_sort-")
     assert a != _build.library_path("splitter_partition")
     assert _build.word_ptrs([]) == [None, None, None]
+    assert set(_build.SOURCES) == {"tile_sort", "splitter_partition",
+                                   "splitter_ranks", "topk"}
+    assert all((_build._CSRC / f"{n}.cu").exists() for n in _build.SOURCES)
+
+
+def test_library_key_covers_the_shared_header(tmp_path, monkeypatch):
+    """An edit of the network header rebuilds K1 and K4."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    with open(csrc / "bitonic_network.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert before["tile_sort"] != after["tile_sort"]
+    assert before["topk"] != after["topk"]
+    for name in ("tile_sort", "topk"):  # the network loop is in the header only
+        text = (csrc / f"{name}.cu").read_text()
+        assert '#include "bitonic_network.cuh"' in text and "d >>= 1" not in text
 
 
 def _imports(path: Path):
@@ -180,7 +357,9 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    assert len(files) >= 16
+    assert ROOT / "src" / "repro_torch" / "core" / "partial_sort.py" in files
+    assert ROOT / "src" / "repro_torch" / "kernels" / "topk.py" in files
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
