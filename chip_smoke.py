@@ -5,28 +5,37 @@ Usage (from the root of a checkout, on a machine with an NVIDIA card):
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``
-(K1 tile sort, K2 splitter partition, K3 splitter ranks, K4 row top-k)
-and then
+It builds the six CUDA kernels from ``src/repro_torch/kernels/csrc``
+(K1 tile sort, K2 splitter partition, K3 splitter ranks, K4 row top-k,
+K5 radix sort, K6 merge sort) and then
 
 1. holds each kernel bit for bit against its plain PyTorch version on
    the card, at the row widths, word counts, sample and splitter counts
    of the main path (rows capped to 2^22 elements per check; K3 on
    sorted and on unsorted tiles; K4 at 16 to 1024 columns, one and two
-   words, k in {1, 6, 8}), and at a main-path shape, which is also timed;
+   words, k in {1, 6, 8}; K5 and K6 also at T in {2, 64, 4096, 8192,
+   16384}, one and two words, 0 or 64 samples, radix_bits 1, 2, 4 and
+   merge_run 64, 512, on duplicate keys with arange payloads and on
+   random keys and payloads), and at a main-path shape, which is also
+   timed;
 2. drives the main path through the public entry points on seeded
-   numpy data, ten cases: ``sort`` / ``argsort`` 2^26 int32, ``argsort``
-   2^24 float32 with NaN / +-inf / -0.0, ``sort_kv`` 2^24 int64,
-   ``sort_batched`` (256, 65536) int32, ``sort`` 2^24 int32 with
+   numpy data, fifteen cases: ``sort`` / ``argsort`` 2^26 int32,
+   ``argsort`` 2^24 float32 with NaN / +-inf / -0.0, ``sort_kv`` 2^24
+   int64, ``sort_batched`` (256, 65536) int32, ``sort`` 2^24 int32 with
    ``fuse_ranking=False``, ``topk_batched`` (256, 151936) float32 k=50,
-   ``topk`` 2^24 float32 k=1024, and ``ops.topk`` of (65536, 128) k=8
-   and (65536, 64) k=6 router probabilities; checks each result against
-   stable ``torch.sort`` on the card (descending for top-k, whose ties
-   go to the smaller index), and counts the kernel launches, which must
-   equal the launches the plans call for;
+   ``topk`` 2^24 float32 k=1024, ``ops.topk`` of (65536, 128) k=8 and
+   (65536, 64) k=6 router probabilities; then with the radix and merge
+   strategies: ``sort`` 2^26 int32 with the probe's config (radix),
+   ``sort_kv`` 2^24 int64 with radix_bits=2, ``sort`` 2^24 nearly
+   sorted int32 with the probe's config (merge), ``argsort`` 2^24
+   float64 with NaN / +-inf / -0.0 (merge) and the serving
+   ``topk_batched`` (radix); checks each result against stable
+   ``torch.sort`` on the card (descending for top-k, whose ties go to
+   the smaller index), and counts the kernel launches, which must equal
+   the launches the plans call for;
 3. times each entry point (median of CUDA-event-timed runs) beside
    ``torch.sort`` or ``torch.topk``, with the peak device memory, and
-   profiles the 2^26 sort and the batched top-k;
+   profiles the 2^26 sort (bitonic and radix) and the batched top-k;
 4. prints a JSON line of per-kernel numbers, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -46,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import math
 import statistics
@@ -108,13 +118,19 @@ def flat(out):
     return res
 
 
+# The row-sort kernel of each local-sort strategy: K1, K5, K6.
+SORTERS = {"bitonic": "tile_sort", "radix": "radix_sort", "merge": "merge_sort"}
+
+
 def kernel_launches(node, out):
     """(kernel, rows, T, samples or splitters) of every launch a plan's
     walk makes, in order."""
+    sorter = SORTERS[node.strategy]
     if node.kind == "direct":
-        out.append(("tile_sort", node.rows, node.lp, 0))
+        out.append((sorter, node.rows, node.lp, 0))
         return out
-    out.append(("tile_sort", node.rows * node.m, node.tile, node.s))
+    out.append((sorter, node.rows * node.m, node.tile,
+                node.s if node.fuse_sampling else 0))
     kernel_launches(node.sample_plan, out)
     out.append(("splitter_partition" if node.fuse_ranking else "splitter_ranks",
                 node.rows * node.m, node.tile, node.s_round - 1))
@@ -124,14 +140,15 @@ def kernel_launches(node, out):
 
 def topk_launches(tplan):
     """The launches of a partial sort's walk, from its TopkPlan: a row
-    the plan gives no SortPlan is one K1 launch at its power-of-two
-    width, a row it does is that plan's walk."""
+    the plan gives no SortPlan is one launch of the strategy's row sort
+    at its power-of-two width, a row it does is that plan's walk."""
     out = []
+    sorter = SORTERS[tplan.strategy]
 
     def row(n, plan):
         if plan is None:
             width = max(2, 1 << (n - 1).bit_length())
-            out.append(("tile_sort", tplan.rows, width, 0))
+            out.append((sorter, tplan.rows, width, 0))
         else:
             kernel_launches(plan.root, out)
 
@@ -139,7 +156,7 @@ def topk_launches(tplan):
         row(tplan.length, tplan.final_plan)
         return out
     tiles = tplan.rows * tplan.m
-    out.append(("tile_sort", tiles, tplan.tile, tplan.s))
+    out.append((sorter, tiles, tplan.tile, tplan.s))
     row(tplan.m * tplan.s, tplan.sample_plan)
     out.append(("splitter_ranks", tiles, tplan.tile, tplan.s - 1))
     row(tplan.ccap, tplan.final_plan)
@@ -158,6 +175,28 @@ def random_tiles(m, t, nw, gen):
     return words, vals
 
 
+def duplicate_tiles(m, t, nw, gen):
+    """(m, T) key words below 16 (canonical: biased words from -2^31)
+    and arange payloads, the pipeline's payload order."""
+    words = tuple(
+        torch.randint(0, 16, (m, t), generator=gen, device="cuda",
+                      dtype=torch.int32) ^ -(2**31)
+        for _ in range(nw)
+    )
+    vals = torch.arange(t, dtype=torch.int32, device="cuda").repeat(m, 1)
+    return words, vals
+
+
+def random_rows(m, t, nw, gen):
+    """(m, T) random key words and random payloads, repeats allowed."""
+    words = tuple(
+        torch.randint(-(2**31), 2**31 - 1, (m, t), generator=gen,
+                      device="cuda", dtype=torch.int32)
+        for _ in range(nw + 1)
+    )
+    return words[:-1], words[-1]
+
+
 def real_splitters(tkw, tv, samp_kw, samp_v, num_splitters, ref):
     """The pipeline's splitters for one row of m sorted tiles: the sorted
     samples' equidistant elements, repeated for every tile."""
@@ -174,13 +213,16 @@ def real_splitters(tkw, tv, samp_kw, samp_v, num_splitters, ref):
 
 
 def check_kernels(launch_shapes, gen):
-    """Each kernel vs its plain version on the card, bit for bit."""
+    """Each kernel vs its plain version on the card, bit for bit.
+
+    ``launch_shapes`` holds (kernel, rows, T, samples / splitters / k,
+    key words, radix_bits or merge_run) of the main path's launches."""
     from repro_torch.kernels import bitonic, ref, splitter, topk
 
-    k1 = {(t, nw, s) for k, _, t, s, nw in launch_shapes if k == "tile_sort"}
+    k1 = {(t, nw, s) for k, _, t, s, nw, _ in launch_shapes if k == "tile_sort"}
     k1 |= {(t, nw, s) for t in (2, 64, 4096, 8192) for nw in (1, 2)
            for s in (0, min(64, t))}
-    k2 = {(t, nw, s) for k, _, t, s, nw in launch_shapes
+    k2 = {(t, nw, s) for k, _, t, s, nw, _ in launch_shapes
           if k == "splitter_partition"}
     for t, nw, s in sorted(k1):
         words, vals = random_tiles(max(1, CHECK_ELEMENTS // t), t, nw, gen)
@@ -209,7 +251,7 @@ def check_kernels(launch_shapes, gen):
         print(f"K2 splitter_partition T={t} nw={nw} S={s}: max_abs_err={err}")
         if err:
             raise AssertionError("K2 disagrees with its plain version")
-    k3 = {(t, nw, s) for k, _, t, s, nw in launch_shapes if k == "splitter_ranks"}
+    k3 = {(t, nw, s) for k, _, t, s, nw, _ in launch_shapes if k == "splitter_ranks"}
     for t, nw, s in sorted(k3):
         m = max(1, CHECK_ELEMENTS // t)
         words, vals = random_tiles(m, t, nw, gen)
@@ -235,7 +277,7 @@ def check_kernels(launch_shapes, gen):
                 raise AssertionError("K3 disagrees with its plain version")
     k4 = {(c, nw, k) for c in (16, 64, 128, 1024) for nw in (1, 2)
           for k in (1, 6, 8)}
-    k4 |= {(t, nw, s) for k, _, t, s, nw in launch_shapes if k == "topk"}
+    k4 |= {(t, nw, s) for k, _, t, s, nw, _ in launch_shapes if k == "topk"}
     for c, nw, k in sorted(k4):
         # A row count that leaves the last CTA's rows partly masked.
         words, _ = random_tiles(max(1, CHECK_ELEMENTS // c) + 3, c, nw, gen)
@@ -245,6 +287,57 @@ def check_kernels(launch_shapes, gen):
         print(f"K4 topk C={c} nw={nw} k={k}: max_abs_err={err}")
         if err:
             raise AssertionError("K4 disagrees with its plain version")
+    check_row_sorters(launch_shapes, gen)
+
+
+def row_sorter(kernel):
+    """(wrapper, sample wrapper, plain version, knob name) of K5 or K6."""
+    from repro_torch.kernels import merge, radix
+
+    if kernel == "radix_sort":
+        return radix.sort_tiles_kv, radix.sort_tiles_sample_kv, \
+            radix.radix_sort_rows, "radix_bits"
+    return merge.sort_tiles_kv, merge.sort_tiles_sample_kv, \
+        merge.merge_sort_rows, "merge_run"
+
+
+def check_row_sorters(launch_shapes, gen):
+    """K5 and K6 bit for bit against their plain versions, at every
+    (T, key words, samples, knob) the main path launches them with and on
+    a grid: T in {2, 64, 4096, 8192, 16384}, one and two words, 0 or 64
+    samples, radix_bits 1, 2, 4, merge_run 64 and 512 (above T for the
+    narrow rows), on keys below 16 with arange payloads and on random
+    keys and payloads (both plain versions are defined for any payload)."""
+    from repro_torch.kernels import bitonic
+
+    grid = {(t, nw, s) for t in (2, 64, 4096, 8192, bitonic.MAX_TILE)
+            for nw in (1, 2) for s in (0, min(64, t))}
+    for kernel, knobs in (("radix_sort", (1, 2, 4)), ("merge_sort", (64, 512))):
+        wrap, wrap_sample, plain, knob_name = row_sorter(kernel)
+        main = {(t, nw, s, knob) for k, _, t, s, nw, knob in launch_shapes
+                if k == kernel}
+        cases = sorted(main) + [(t, nw, s, knob) for t, nw, s in sorted(grid)
+                                for knob in knobs]
+        for t, nw, s, knob in cases:
+            m = max(1, (CHECK_ELEMENTS if (t, nw, s, knob) in main
+                        else CHECK_ELEMENTS // 4) // t)
+            for data in ("duplicates", "random"):
+                words, vals = (duplicate_tiles if data == "duplicates"
+                               else random_rows)(m, t, nw, gen)
+                kw = {knob_name: knob}
+                got = (wrap_sample(words, vals, num_samples=s, **kw) if s
+                       else wrap(words, vals, **kw))
+                torch.cuda.synchronize()
+                pw, pv = plain(words, vals, **kw)
+                want = (pw, pv)
+                if s:
+                    want += (tuple(bitonic.take_samples(w, s) for w in pw),
+                             bitonic.take_samples(pv, s))
+                err = max_abs_err(flat(got), flat(want))
+                print(f"{kernel} T={t} nw={nw} samples={s} {knob_name}={knob} "
+                      f"{data}: max_abs_err={err}")
+                if err:
+                    raise AssertionError(f"{kernel} disagrees with its plain version")
 
 
 def measure_k1(m, t, nw, s, gen):
@@ -270,6 +363,30 @@ def measure_k1(m, t, nw, s, gen):
     # per row, one operation each at least (not the bitonic network's
     # own T/2 * log2 T * (log2 T + 1) / 2 compare-exchanges).
     ops = m * math.lgamma(t + 1) / math.log(2)
+    return err, ms, plain_ms, library_ms, nbytes, ops
+
+
+def measure_row_sorter(kernel, m, t, nw, s, knob, gen):
+    """K5 or K6 at K1's main-path shape, with K1's bound and library call,
+    on K1's random tiles with arange payloads (the pipeline's order)."""
+    from repro_torch.kernels import bitonic
+
+    _, wrap_sample, plain, knob_name = row_sorter(kernel)
+    kw = {knob_name: knob}
+    words, _ = random_tiles(m, t, nw, gen)
+    vals = torch.arange(t, dtype=torch.int32, device="cuda").repeat(m, 1)
+    got = wrap_sample(words, vals, num_samples=s, **kw)
+    pw, pv = plain(words, vals, **kw)
+    want = (pw, pv, tuple(bitonic.take_samples(w, s) for w in pw),
+            bitonic.take_samples(pv, s))
+    err = max_abs_err(flat(got), flat(want))
+    del got, pw, pv, want
+    ms = time_ms(lambda: wrap_sample(words, vals, num_samples=s, **kw), 10)
+    plain_ms = time_ms(lambda: plain(words, vals, **kw), 1)
+    composite = (words[0].long() << 32) | vals.long()
+    library_ms = time_ms(lambda: torch.sort(composite, dim=1), 5)
+    nbytes = 4 * (nw + 1) * (2 * m * t + m * s)
+    ops = m * math.lgamma(t + 1) / math.log(2)  # as K1: the same work
     return err, ms, plain_ms, library_ms, nbytes, ops
 
 
@@ -469,7 +586,8 @@ def main_path_cases(rng):
     """The main-path runs, with data from rng: for each, the entry point,
     its arguments, check(out, *args) against stable torch.sort, the
     library call timed beside it and the launches its plan calls for
-    (kernel, rows, width, samples / splitters / k, key words)."""
+    (kernel, rows, width, samples / splitters / k, key words, radix_bits
+    or merge_run)."""
     from repro_torch.core import (
         DEFAULT_CONFIG,
         SortConfig,
@@ -478,28 +596,41 @@ def main_path_cases(rng):
         bucket_sort,
         codec_for,
         partial_sort,
+        probe,
     )
     from repro_torch.kernels import ops
 
     def shape2(x):
         return (1, x.shape[0]) if x.dim() == 1 else tuple(x.shape)
 
+    def knob(kernel, cfg):
+        return {"radix_sort": cfg.radix_bits,
+                "merge_sort": cfg.merge_run}.get(kernel, 0)
+
     def sort_launches(x, cfg=DEFAULT_CONFIG):
         rows, length = shape2(x)
         nw = codec_for(x.dtype).num_words
         plan = build_plan(length, x.dtype, cfg, rows=rows)
-        return [ln + (nw,) for ln in kernel_launches(plan.root, [])]
+        return [ln + (nw, knob(ln[0], cfg))
+                for ln in kernel_launches(plan.root, [])]
 
-    def partial_launches(x, k):
+    def partial_launches(x, k, cfg=DEFAULT_CONFIG):
         rows, length = shape2(x)
         nw = codec_for(x.dtype).num_words
-        tplan = build_topk_plan(length, k, x.dtype, DEFAULT_CONFIG, rows=rows)
-        return [ln + (nw,) for ln in topk_launches(tplan)]
+        tplan = build_topk_plan(length, k, x.dtype, cfg, rows=rows)
+        return [ln + (nw, knob(ln[0], cfg)) for ln in topk_launches(tplan)]
 
     def router_launches(x, k):
         r, c = x.shape
         return [("topk", r, 1 << (c - 1).bit_length(), k,
-                 codec_for(x.dtype).num_words)]
+                 codec_for(x.dtype).num_words, 0)]
+
+    def probed(x, strategy):
+        # The probe's pick for x, which the case asserts.
+        cfg = probe.probed_config(x)
+        if cfg.strategy != strategy:
+            raise AssertionError(f"probe picked {cfg.strategy!r}, not {strategy!r}")
+        return cfg
 
     n26, n24 = 1 << 26, 1 << 24
     x32 = torch.from_numpy(rng.integers(-(2**31), 2**31, n26, dtype=np.int32))
@@ -528,11 +659,37 @@ def main_path_cases(rng):
     probs64 = bf16_ties(torch.softmax(torch.from_numpy(
         rng.standard_normal((65536, 64), dtype=np.float32)), 1).numpy())
     unfused = SortConfig(fuse_ranking=False)
+    # Appending to an already sorted column (time-series keys): ascending
+    # int32 with 1 % of the positions swapped with their right neighbour.
+    near = np.arange(n24, dtype=np.int32)
+    swap = rng.integers(0, n24 - 1, n24 // 100)
+    near[swap], near[swap + 1] = near[swap + 1], near[swap]
+    xn = torch.from_numpy(near)
+    f64 = rng.standard_normal(n24)
+    special = rng.integers(0, n24, 4 * (n24 // 100))
+    f64[special[0::4]] = np.nan
+    f64[special[1::4]] = np.inf
+    f64[special[2::4]] = -np.inf
+    f64[special[3::4]] = -0.0
+    f64[: n24 // 100] = 0.0
+    xf64 = torch.from_numpy(f64)
+    radix_probed = probed(x32, "radix")
+    merge_probed = probed(xn, "merge")
+    radix2 = SortConfig(strategy="radix", radix_bits=2)
+    merge_cfg = SortConfig(strategy="merge")
+    radix_cfg = SortConfig(strategy="radix")
 
     def total_order(x):
-        # float32 total order (NaN last, -0.0 < +0.0) as an int32 key.
-        i = x.view(torch.int32)
-        return torch.where(i < 0, i ^ 0x7FFFFFFF, i)
+        # float32 / float64 total order (NaN last, -0.0 < +0.0) as an
+        # integer key of the same width.
+        i = x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+        return torch.where(i < 0, i ^ torch.iinfo(i.dtype).max, i)
+
+    def check_total_order(out, x):
+        return torch.equal(out.long(), torch.sort(total_order(x), stable=True).indices)
+
+    def sort_probed(x):
+        return bucket_sort.sort(x, probe.probed_config(x))
 
     def check_sort(out, x):
         return torch.equal(out, torch.sort(x, stable=True).values)
@@ -556,9 +713,9 @@ def main_path_cases(rng):
                     and torch.equal(out[1].long(), want.indices[..., :k]))
         return check
 
-    def topk_case(name, fn, x, k, launches):
-        return Case(name, lambda a: fn(a, k), (x,), check_topk(k),
-                    lambda a: torch.topk(a, k, dim=-1), launches(x, k))
+    def topk_case(name, fn, x, k, launches, *cfg):
+        return Case(name, lambda a: fn(a, k, *cfg), (x,), check_topk(k),
+                    lambda a: torch.topk(a, k, dim=-1), launches(x, k, *cfg))
 
     return [
         Case("sort int32 2^26", bucket_sort.sort, (x32,), check_sort,
@@ -566,9 +723,8 @@ def main_path_cases(rng):
         Case("argsort int32 2^26", bucket_sort.argsort, (x32,), check_argsort,
              lambda x: torch.sort(x, stable=True), sort_launches(x32)),
         Case("argsort float32 2^24 NaN/inf/-0.0", bucket_sort.argsort, (xf,),
-             lambda out, x: torch.equal(
-                 out.long(), torch.sort(total_order(x), stable=True).indices),
-             lambda x: torch.sort(x, stable=True), sort_launches(xf)),
+             check_total_order, lambda x: torch.sort(x, stable=True),
+             sort_launches(xf)),
         Case("sort_kv int64 2^24", bucket_sort.sort_kv, (x64, v64), check_kv,
              library_kv, sort_launches(x64)),
         Case("sort_batched int32 (256, 65536)", bucket_sort.sort_batched, (xb,),
@@ -586,6 +742,22 @@ def main_path_cases(rng):
                   router_launches),
         topk_case("ops.topk float32 (65536, 64) k=6", ops.topk, probs64, 6,
                   router_launches),
+        # The radix and merge strategies (K5, K6), two picked by the probe.
+        Case("sort int32 2^26 probed: radix", sort_probed, (x32,), check_sort,
+             lambda x: torch.sort(x, stable=True), sort_launches(x32, radix_probed)),
+        Case("sort_kv int64 2^24 radix radix_bits=2",
+             lambda x, v: bucket_sort.sort_kv(x, v, radix2), (x64, v64),
+             check_kv, library_kv, sort_launches(x64, radix2)),
+        Case("sort int32 2^24 nearly sorted probed: merge", sort_probed, (xn,),
+             check_sort, lambda x: torch.sort(x, stable=True),
+             sort_launches(xn, merge_probed)),
+        Case("argsort float64 2^24 NaN/inf/-0.0 merge",
+             lambda x: bucket_sort.argsort(x, merge_cfg), (xf64,),
+             check_total_order, lambda x: torch.sort(x, stable=True),
+             sort_launches(xf64, merge_cfg)),
+        topk_case("topk_batched float32 (256, 151936) k=50 radix",
+                  partial_sort.topk_batched, logits, 50, partial_launches,
+                  radix_cfg),
     ]
 
 
@@ -667,14 +839,17 @@ def main() -> int:
 
     profile_main_path(cases[0])
     profile_main_path(cases[6])  # the batched top-k of the serving case
+    profile_main_path(cases[10])  # the 2^26 sort through K5
 
     # K1 and K2 at the top-level shape of the 2^26 int32 sort, K3 at the
-    # serving top-k's tiles, K4 at the 128-expert router's rows.
+    # serving top-k's tiles, K4 at the 128-expert router's rows; K5 and K6
+    # at K1's shape, with the default radix_bits and merge_run.
     top = build_plan(1 << 26, torch.int32, DEFAULT_CONFIG).root
     serve = build_topk_plan(151_936, 50, torch.float32, DEFAULT_CONFIG, rows=256)
+    k1_shape = (top.rows * top.m, top.tile, 1, top.s)
     rows = []
     for kernel, measure, shape, source, replaces in (
-        ("tile_sort", measure_k1, (top.rows * top.m, top.tile, 1, top.s),
+        ("tile_sort", measure_k1, k1_shape,
          "src/repro_torch/kernels/csrc/tile_sort.cu",
          "src/repro/kernels/bitonic.py:275"),
         ("splitter_partition", measure_k2,
@@ -688,6 +863,14 @@ def main() -> int:
         ("topk", measure_k4, (65536, 128, 1, 8),
          "src/repro_torch/kernels/csrc/topk.cu",
          "src/repro/kernels/topk.py:41"),
+        ("radix_sort", functools.partial(measure_row_sorter, "radix_sort"),
+         k1_shape + (DEFAULT_CONFIG.radix_bits,),
+         "src/repro_torch/kernels/csrc/radix_sort.cu",
+         "src/repro/kernels/radix.py:168"),
+        ("merge_sort", functools.partial(measure_row_sorter, "merge_sort"),
+         k1_shape + (DEFAULT_CONFIG.merge_run,),
+         "src/repro_torch/kernels/csrc/merge_sort.cu",
+         "src/repro/kernels/merge.py:102"),
     ):
         err, ms, plain_ms, library_ms, nbytes, nops = measure(*shape, gen)
         if err:
@@ -703,6 +886,7 @@ def main() -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms,
         })
+
     print(json.dumps({"kernels": rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ from repro_torch.core.bucket_sort import (
 )
 from repro_torch.core.key_codec import SUPPORTED_DTYPES, KeyCodec, codec_for
 from repro_torch.core.partial_sort import topk, topk_batched
+from repro_torch.core.probe import probed_config, recommend_strategy
 from repro_torch.core.plan import (
     LevelPlan,
     SortPlan,
@@ -46,6 +47,8 @@ __all__ = [
     "build_topk_plan",
     "build_words_plan",
     "config_fingerprint",
+    "probed_config",
+    "recommend_strategy",
     "DEFAULT_CONFIG",
     "PAPER_CONFIG",
     "SortConfig",

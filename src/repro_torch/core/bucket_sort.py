@@ -2,11 +2,14 @@
 
 Port of the JAX package's ``core/bucket_sort.py`` main path: the same
 plan-walking executor, on biased int32 key words (``core/key_codec``)
-and int32 payloads, with two hand-written CUDA kernels:
+and int32 payloads, with hand-written CUDA kernels:
 
   step 1  split into tiles            -> reshape (rows, L) -> (rows*m, T)
-  step 2  local sort per tile         -> K1 tile sort (kernels/bitonic)
-  step 3  s equidistant local samples -> K1's fused sample epilogue
+  step 2  local sort per tile         -> K1 bitonic tile sort, or K5 radix
+                                         / K6 merge by the plan's strategy
+  step 3  s equidistant local samples -> the tile sort's fused sample
+                                         epilogue, or a strided slice of
+                                         the sorted tiles (unfused)
   step 4  sort all samples            -> recursion on the sample array
   step 5  s equidistant global samples-> strided slice of sorted samples
   step 6  sample indexing             -> K2 splitter partition, or K3
@@ -27,7 +30,11 @@ to the other, and errors propagate.
 Invariants (as in the reference): payloads are unique per row (the
 original index, or pads drawn from one per-row range above every real
 payload), so every compared pair is distinct, the bucket capacity bound
-holds for any input and the sort is stable.  Flat gather indices are
+holds for any input and the sort is stable.  Equal keys always arrive
+in increasing-payload order (entry payloads are indices, pads come
+after, and sampling, relocation and compaction keep the order of equal
+keys), which is what lets the radix and merge strategies, stable on the
+key words alone, give the bitonic order.  Flat gather indices are
 int64 (torch's index type); the reference builds them in int32.
 """
 
@@ -39,6 +46,7 @@ from repro_torch.core.key_codec import codec_for
 from repro_torch.core.plan import LevelPlan, SortPlan, build_plan
 from repro_torch.core.sort_config import DEFAULT_CONFIG, SortConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.bitonic import take_samples
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.kernels.splitter import counts_from_ranks
 
@@ -72,8 +80,15 @@ def _direct_sort(data: list, node: LevelPlan, pad_base: int):
     kw, vals = data
     data.clear()
     kw, vals, pad_base = _pad_cols(kw, vals, node.lp, pad_base)
-    sk, sv = ops.sort_tiles(kw, vals)
+    sk, sv = ops.sort_tiles(kw, vals, **_local_sort(node))
     return sk, sv, pad_base
+
+
+def _local_sort(node) -> dict:
+    """The local-sort knobs of a LevelPlan or TopkPlan, as
+    ``ops.sort_tiles*`` take them."""
+    return dict(strategy=node.strategy, radix_bits=node.radix_bits,
+                merge_run=node.merge_run)
 
 
 def _chunk_search(offsets: torch.Tensor, positions: torch.Tensor):
@@ -180,12 +195,18 @@ def _run_node(data: list, node: LevelPlan, pad_base: int, stats: list | None):
     s_round, cap = node.s_round, node.cap
     kw, vals, pad_base = _pad_cols(kw, vals, lp, pad_base)
 
-    # Steps 1-3: tile sort with the samples emitted by its epilogue.
-    tkw, tv, samp_kw, samp_v = ops.sort_tiles_sample(
-        tuple(w.reshape(r * m, t) for w in kw), vals.reshape(r * m, t),
-        num_samples=sper,
-    )
+    # Steps 1-3: tile sort, with the samples emitted by its epilogue or
+    # sliced out of the sorted tiles: element (j+1)*T/s - 1 of each.
+    tiles = (tuple(w.reshape(r * m, t) for w in kw), vals.reshape(r * m, t))
     del kw, vals
+    if node.fuse_sampling:
+        tkw, tv, samp_kw, samp_v = ops.sort_tiles_sample(
+            *tiles, num_samples=sper, **_local_sort(node))
+    else:
+        tkw, tv = ops.sort_tiles(*tiles, **_local_sort(node))
+        samp_kw = tuple(take_samples(w, sper) for w in tkw)
+        samp_v = take_samples(tv, sper)
+    del tiles
 
     # Step 4: sort all samples (recursion on the (r, m*s) sample array).
     sskw, ssv, pad_base = _run_node(

@@ -6,12 +6,13 @@ rank is >= k; the fewer than k + cap elements below θ (cap = the
 guaranteed bucket capacity, which makes the candidate buffer static)
 are packed and sorted, and their first k are the answer:
 
-  tile sort with samples        -> K1 (kernels/bitonic)
-  sort the samples               -> K1, or the bucket-sort executor for
-                                    a row wider than K1 takes
+  tile sort with samples        -> K1, K5 or K6 by the plan's strategy
+  sort the samples               -> the same kernel, or the bucket-sort
+                                    executor for a row wider than a
+                                    CTA takes
   splitter ranks per tile        -> K3 (kernels/splitter)
   θ, candidate pack              -> torch glue (searchsorted + gather)
-  sort the candidates            -> K1, or the executor as above
+  sort the candidates            -> as the samples
 
 Everything works on "the k smallest canonical key words": the entry
 points encode with the descending codec, under which ascending order is
@@ -37,6 +38,7 @@ from repro_torch.core.bucket_sort import (
     _PAD,
     _chunk_search,
     _execute_packed,
+    _local_sort,
 )
 from repro_torch.core.key_codec import codec_for
 from repro_torch.core.plan import SortPlan, TopkPlan, build_topk_plan
@@ -59,8 +61,8 @@ def _pad_max(kw, vals, width: int):
 
 
 def _pad_pow2(kw, v2):
-    """Pad (r, L) to the next power of two (at least 2, K1's narrowest
-    tile), as :func:`_pad_max`."""
+    """Pad (r, L) to the next power of two (at least 2, the narrowest
+    tile of the row sorts), as :func:`_pad_max`."""
     return _pad_max(kw, v2, max(2, next_pow2(v2.shape[1])))
 
 
@@ -73,7 +75,7 @@ def _sort_wide_rows(kw, v2, plan: SortPlan, base: int):
     payload base + its column for the call and INT_MAX back after it
     (``build_topk_plan`` refuses a length where that overflows): the
     pads still sort after every real element, and the result is the
-    sorted row that :func:`_pad_pow2` and K1 give.
+    sorted row that :func:`_pad_pow2` and one row sort give.
     """
     n = v2.shape[1]
     cols = torch.arange(n, dtype=torch.int32, device=v2.device)
@@ -82,19 +84,22 @@ def _sort_wide_rows(kw, v2, plan: SortPlan, base: int):
     return skw, torch.where(sv >= base, _INT_MAX, sv)
 
 
-def _sort_small_rows(kw, v2, plan: SortPlan | None, base: int):
+def _sort_small_rows(kw, v2, plan: SortPlan | None, base: int,
+                     tplan: TopkPlan):
     """Sort each row of (r, L) on (*words, payload); returns (r, L).
 
     ``plan`` is the TopkPlan's choice for this row, made from the shape
     alone before anything launches: None pads the row to a power of two
-    and sorts it with one K1 launch; a SortPlan (a row wider than
+    and sorts it with one launch of the plan's local sort (K1, K5 or
+    K6; the pads come after every real element in the row, so the
+    stable K5 and K6 keep them last); a SortPlan (a row wider than
     ``bitonic.MAX_TILE``: the sample and candidate rows of a long 1-D
     top-k) runs the bucket-sort executor (:func:`_sort_wide_rows`).
     This is not a fallback, and both give the same sorted rows.
     """
     n = v2.shape[1]
     if plan is None:
-        skw, sv = ops.sort_tiles(*_pad_pow2(kw, v2))
+        skw, sv = ops.sort_tiles(*_pad_pow2(kw, v2), **_local_sort(tplan))
     else:
         skw, sv = _sort_wide_rows(kw, v2, plan, base)
     return tuple(w[:, :n] for w in skw), sv[:, :n]
@@ -118,14 +123,14 @@ def _smallest_k_rows(kw, tplan: TopkPlan):
     # Steps 1-3: tile sort of every row's tiles, samples from its epilogue.
     tkw, tv, samp_kw, samp_v = ops.sort_tiles_sample(
         tuple(w.reshape(b * m, t) for w in kw), vals.reshape(b * m, t),
-        num_samples=s,
+        num_samples=s, **_local_sort(tplan),
     )
     del kw, vals
 
     # Steps 4-5: sorted sample rows, s - 1 splitters per row.
     sskw, ssv = _sort_small_rows(
         tuple(w.reshape(b, m * s) for w in samp_kw), samp_v.reshape(b, m * s),
-        tplan.sample_plan, tplan.length,
+        tplan.sample_plan, tplan.length, tplan,
     )
     sp_idx = torch.arange(1, s, device=dev) * (m * s) // s
     spkw_t = tuple(w[:, sp_idx].repeat_interleave(m, dim=0).contiguous()
@@ -165,7 +170,7 @@ def _smallest_k_rows(kw, tplan: TopkPlan):
     cv = torch.where(valid, tv.reshape(-1)[src].reshape(b, ccap), _INT_MAX)
     del tkw, tv, src
 
-    fkw, fv = _sort_small_rows(ckw, cv, tplan.final_plan, tplan.length)
+    fkw, fv = _sort_small_rows(ckw, cv, tplan.final_plan, tplan.length, tplan)
     return tuple(w[:, :k] for w in fkw), fv[:, :k]
 
 
@@ -220,7 +225,7 @@ def topk_batched(x, k: int, cfg: SortConfig = DEFAULT_CONFIG, *, device=None):
     if n <= tplan.direct_max:
         vals = torch.arange(n, dtype=torch.int32, device=x.device)
         fkw, fv = _sort_small_rows(kw, vals.expand(b, n).contiguous(),
-                                   tplan.final_plan, n)
+                                   tplan.final_plan, n, tplan)
         fkw, fv = tuple(w[:, :k] for w in fkw), fv[:, :k]
     else:
         fkw, fv = _smallest_k_rows(kw, tplan)

@@ -53,6 +53,12 @@ class LevelPlan:
         fuse_ranking: bucket levels: rank splitters and count buckets
             with K2 (True) or rank with K3 and count from the ranks
             (False); False on direct levels, as in the JAX plan.
+        fuse_sampling: bucket levels: samples from the tile sort's
+            epilogue (True) or sliced from the sorted tiles (False);
+            False on direct levels, as in the JAX plan.
+        strategy / radix_bits / merge_run: the local sort of the level's
+            tiles or rows (K1, K5 or K6) and its knobs, copied from the
+            config at every node.
     """
 
     kind: str
@@ -65,6 +71,10 @@ class LevelPlan:
     s_round: int = 0
     cap: int = 0
     fuse_ranking: bool = False
+    fuse_sampling: bool = False
+    strategy: str = "bitonic"
+    radix_bits: int = 4
+    merge_run: int = 512
     sample_plan: "LevelPlan | None" = None
     bucket_plan: "LevelPlan | None" = None
 
@@ -131,10 +141,17 @@ def config_fingerprint(cfg: SortConfig) -> str:
     return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
 
+def _strategy_fields(cfg: SortConfig) -> dict:
+    """The local-sort fields every plan node copies from the config."""
+    return dict(strategy=cfg.strategy, radix_bits=cfg.radix_bits,
+                merge_run=cfg.merge_run)
+
+
 def _build_node(rows: int, length: int, cfg: SortConfig) -> LevelPlan:
     if length <= cfg.direct_max:
         lp = next_pow2(length)
-        return LevelPlan(kind="direct", rows=rows, length=length, lp=lp)
+        return LevelPlan(kind="direct", rows=rows, length=length, lp=lp,
+                         **_strategy_fields(cfg))
     t, sper = cfg.tile, cfg.s
     lp = round_up(length, t)
     m = lp // t
@@ -156,7 +173,8 @@ def _build_node(rows: int, length: int, cfg: SortConfig) -> LevelPlan:
     return LevelPlan(
         kind="bucket", rows=rows, length=length, lp=lp,
         tile=t, s=sper, m=m, s_round=s_round, cap=cap,
-        fuse_ranking=cfg.fuse_ranking,
+        fuse_ranking=cfg.fuse_ranking, fuse_sampling=cfg.fuse_sampling,
+        **_strategy_fields(cfg),
         sample_plan=_build_node(rows, m * sper, cfg),
         bucket_plan=_build_node(rows * s_round, cap, cfg),
     )
@@ -218,10 +236,12 @@ class TopkPlan:
         sample_plan / final_plan: how the (rows, m*s) sample rows and the
             rows sorted last (the (rows, ccap) candidates, or the whole
             (rows, length) rows on the direct path) are sorted.  None:
-            the row, padded to a power of two, fits one K1 tile
-            (``bitonic.MAX_TILE``).  Otherwise the bucket-sort plan the
+            the row, padded to a power of two, fits one tile of the row
+            sorts (``bitonic.MAX_TILE``).  Otherwise the bucket-sort plan the
             executor runs on the row, from the caller's config.
             ``sample_plan`` is None on the direct path.
+        strategy / radix_bits / merge_run: the local sort (K1, K5 or K6)
+            of the tiles and of the rows sorted whole, from the config.
     """
 
     rows: int
@@ -236,6 +256,9 @@ class TopkPlan:
     direct_max: int
     sample_plan: SortPlan | None = None
     final_plan: SortPlan | None = None
+    strategy: str = "bitonic"
+    radix_bits: int = 4
+    merge_run: int = 512
 
 
 _INT_MAX = 2**31 - 1
@@ -267,6 +290,7 @@ def _assemble_topk_plan(length: int, k: int, cfg: SortConfig, rows: int,
         cap=cap, ccap=ccap, direct_max=cfg.direct_max,
         sample_plan=None if direct else row_plan(lp // t * sper),
         final_plan=row_plan(length if direct else ccap),
+        **_strategy_fields(cfg),
     )
 
 
@@ -277,13 +301,13 @@ def build_topk_plan(length: int, k: int, dtype, cfg: SortConfig, *,
 
     Pure and memoized like :func:`build_plan` (``bitonic.MAX_TILE`` is
     part of the key).  Lengths up to ``cfg.direct_max`` take the direct
-    path and never read the bucket fields.  Which rows K1 sorts and
-    which the bucket-sort executor sorts is decided here, from the shape
-    alone.
+    path and never read the bucket fields.  Which rows one row-sort
+    launch (K1, K5 or K6) sorts and which the bucket-sort executor sorts
+    is decided here, from the shape alone.
 
     Raises:
         ValueError: unless 1 <= k <= length; or when a row too wide for
-            K1 would need pad payloads past int32 (length near 2^31).
+            one tile would need pad payloads past int32 (length near 2^31).
         TypeError: for a dtype without a key codec.
     """
     codec = codec_for(dtype, descending=True)

@@ -28,9 +28,7 @@ def round_up(x: int, mult: int) -> int:
 
 # (field, value the port runs, ROADMAP.md item that ports the others)
 _NOT_YET_PORTED = (
-    ("strategy", "bitonic", "Queue 1 item 6 (local-sort strategies)"),
     ("relocation", "gather", "Queue 1 item 4 (scatter relocation)"),
-    ("fuse_sampling", True, "Queue 1 item 4 (unfused sampling)"),
     ("plan", "default", "Queue 1 item 9 (autotune and plan files)"),
     ("check", "off", "Queue 1 item 7 (guarded execution)"),
 )
@@ -49,9 +47,17 @@ class SortConfig:
     fuse_ranking: True ranks splitters and counts buckets in one
         kernel (K2, splitter partition); False ranks them with K3
         (splitter ranks) and derives the counts from the ranks.
-    fuse_sampling / relocation / strategy / plan / check: as in the
-        JAX package; only the defaults run in the port (the strategy
-        knobs radix_bits / merge_run come with the strategies).
+    fuse_sampling: True takes the samples in the tile sort's epilogue;
+        False sorts the tiles, then slices the samples out.
+    strategy: the local sort of every tile and direct row: "bitonic"
+        (K1, the network), "radix" (K5, a stable LSD radix sort on the
+        key words) or "merge" (K6, bitonic runs and merge-path levels).
+        All three give the same rows inside the pipeline.
+    radix_bits: digit width of the radix strategy, 1, 2 or 4.
+    merge_run: run length the merge strategy forms with the bitonic
+        network before its merge levels; a power of two >= 2.
+    relocation / plan / check: as in the JAX package; only the defaults
+        run in the port.
     descending: stable descending order through the codec.
 
     There is no ``impl``: the device of the tensors alone decides
@@ -67,6 +73,8 @@ class SortConfig:
     descending: bool = False
     plan: str = "default"
     strategy: str = "bitonic"
+    radix_bits: int = 4
+    merge_run: int = 512
     check: str = "off"
 
     def __post_init__(self):
@@ -104,6 +112,12 @@ class SortConfig:
                 'SortConfig.strategy must be "bitonic", "radix" or '
                 f'"merge", got {self.strategy!r}'
             )
+        if self.radix_bits not in (1, 2, 4):
+            raise ValueError(
+                f"SortConfig.radix_bits must be 1, 2 or 4, got "
+                f"{self.radix_bits!r}"
+            )
+        _pow2("merge_run", self.merge_run, 2)
         if not (isinstance(self.plan, str) and self.plan):
             raise ValueError(
                 'SortConfig.plan must be "default", "autotune", or a '

@@ -41,6 +41,7 @@ def _node_tree(node) -> tuple | None:
     return (
         node.kind, node.rows, node.length, node.lp, node.tile, node.s,
         node.m, node.s_round, node.cap, node.fuse_ranking,
+        node.fuse_sampling, node.strategy, node.radix_bits, node.merge_run,
         _node_tree(node.sample_plan), _node_tree(node.bucket_plan),
     )
 
@@ -48,7 +49,8 @@ def _node_tree(node) -> tuple | None:
 def plan_tree(plan) -> tuple:
     """Nested tuple of a plan's algorithmic fields: (rows, length,
     num_words, root) with each node as (kind, rows, length, lp, tile, s,
-    m, s_round, cap, fuse_ranking, sample subtree, bucket subtree).
+    m, s_round, cap, fuse_ranking, fuse_sampling, strategy, radix_bits,
+    merge_run, sample subtree, bucket subtree).
 
     Works on this package's :class:`SortPlan` and, field for field, on
     the JAX package's plans, so the two can be compared for equality.

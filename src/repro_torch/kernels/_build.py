@@ -20,7 +20,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-SOURCES = ("tile_sort", "splitter_partition", "splitter_ranks", "topk")
+SOURCES = ("tile_sort", "splitter_partition", "splitter_ranks", "topk",
+           "radix_sort", "merge_sort")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"

@@ -120,33 +120,46 @@ def effective_block_rows(m: int, t: int) -> int:
     return largest_pow2_divisor(m, max(_CTA_ELEMENTS // t, 1))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("tile_sort")
-    fn = lib.repro_tile_sort
+def _lib(source: str, extra_ints: int) -> ctypes.CDLL:
+    lib = _build.library(source)
+    fn = getattr(lib, f"repro_{source}")
     if fn.argtypes is None:
         p = ctypes.c_void_p
         fn.argtypes = [ctypes.c_int] + [p] * 9 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
-        ]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ] + [ctypes.c_int] * extra_ints + [p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(words, vals, num_samples: int):
+def launch_row_sort(source: str, counter: _build.LaunchCounter, words, vals,
+                    num_samples: int, *extra: int):
+    """Check the tensors and launch one of the row-sort kernels, K1
+    (``tile_sort``), K5 (``radix_sort``) or K6 (``merge_sort``).
+
+    They share one C interface, ``repro_<source>(nw, k0, k1, v, ok0, ok1,
+    ov, sk0, sk1, sv, m, T, rows_per_cta, num_samples, *extra, stream)``,
+    and one layout: (m, T) contiguous int32 rows, T a power of two in
+    [2, MAX_TILE], ``effective_block_rows`` rows per CTA.
+
+    Returns:
+        ([sorted words..., sorted vals], [sample words..., sample vals]
+        or [] when num_samples is 0).
+    """
     nw = len(words)
     if nw not in (1, 2):
-        raise ValueError(f"tile sort takes 1 or 2 key words, got {nw}")
+        raise ValueError(f"{source} takes 1 or 2 key words, got {nw}")
     m, t = vals.shape
     for x in words + (vals,):
         if not x.is_cuda:
-            raise ValueError("tile sort kernel takes CUDA tensors only")
+            raise ValueError(f"{source} kernel takes CUDA tensors only")
         if x.dtype != torch.int32 or x.shape != (m, t) or not x.is_contiguous():
             raise ValueError(
-                f"tile sort takes contiguous int32 ({m}, {t}) tensors, got "
+                f"{source} takes contiguous int32 ({m}, {t}) tensors, got "
                 f"{x.dtype} {tuple(x.shape)}"
             )
         if x.device != vals.device:
-            raise ValueError("tile sort inputs must share one device")
+            raise ValueError(f"{source} inputs must share one device")
     if t < 2 or t & (t - 1) or t > MAX_TILE:
         raise ValueError(f"tile width {t} must be a power of two in [2, {MAX_TILE}]")
     if num_samples and t % num_samples:
@@ -159,15 +172,15 @@ def _launch(words, vals, num_samples: int):
     ] if num_samples else []
     if m == 0:
         return out, samp
-    lib = _lib()
+    lib = _lib(source, len(extra))
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_tile_sort(
+        err = getattr(lib, f"repro_{source}")(
             nw, *_build.word_ptrs(words + (vals,)), *_build.word_ptrs(out),
-            *_build.word_ptrs(samp), m, t, rows, num_samples, stream,
+            *_build.word_ptrs(samp), m, t, rows, num_samples, *extra, stream,
         )
-    _build.check(lib, err, "tile_sort")
-    LAUNCHES.add()
+    _build.check(lib, err, source)
+    counter.add()
     return out, samp
 
 
@@ -183,7 +196,7 @@ def sort_tiles_kv(keys, vals: torch.Tensor):
         ValueError: for tensors the kernel does not take.
         RuntimeError: when the launch fails.
     """
-    out, _ = _launch(as_words(keys), vals, 0)
+    out, _ = launch_row_sort("tile_sort", LAUNCHES, as_words(keys), vals, 0)
     return like_words(out[:-1], keys), out[-1]
 
 
@@ -197,7 +210,8 @@ def sort_tiles_sample_kv(keys, vals: torch.Tensor, *, num_samples: int):
     """
     if num_samples < 1:
         raise ValueError(f"num_samples must be >= 1, got {num_samples}")
-    out, samp = _launch(as_words(keys), vals, num_samples)
+    out, samp = launch_row_sort("tile_sort", LAUNCHES, as_words(keys), vals,
+                                num_samples)
     return (
         like_words(out[:-1], keys), out[-1],
         like_words(samp[:-1], keys), samp[-1],

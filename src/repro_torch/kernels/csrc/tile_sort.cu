@@ -8,10 +8,11 @@
 // Layout: one CTA sorts rows_per_cta consecutive rows of T elements held in
 // dynamic shared memory, one int32 array per key word plus one for the
 // payload (rows_per_cta > 1 only when T is small, so that a CTA still holds
-// about 2048 elements).  Key words are the port's biased int32 words, so the
-// lexicographic order on (*words, payload) is plain signed int32 order word
-// by word.  The network is the reference's, in bitonic_network.cuh (shared
-// with K4, topk.cu).
+// about 2048 elements); the row load, store and sample epilogue are in
+// tile_rows.cuh (shared with K5 and K6).  Key words are the port's biased
+// int32 words, so the lexicographic order on (*words, payload) is plain
+// signed int32 order word by word.  The network is the reference's, in
+// bitonic_network.cuh (shared with K4, topk.cu, and K6).
 //
 // Bound on the H100: every element is read once and written once, so the
 // bytes bound is 2 * (nw + 1) * 4 * m * T over 3.35 TB/s.  The network does
@@ -29,10 +30,11 @@
 #include <cuda_runtime.h>
 
 #include "bitonic_network.cuh"
+#include "tile_rows.cuh"
 
 namespace {
 
-template <int NW, bool SAMPLE>
+template <int NW>
 __global__ void tile_sort_kernel(const int* __restrict__ k0,
                                  const int* __restrict__ k1,
                                  const int* __restrict__ v,
@@ -47,48 +49,25 @@ __global__ void tile_sort_kernel(const int* __restrict__ k0,
   int* sval = smem + NW * E;
   const long long base = (long long)blockIdx.x * E;
 
-  for (int i = threadIdx.x; i < E; i += blockDim.x) {
-    s0[i] = k0[base + i];
-    if (NW == 2) s1[i] = k1[base + i];
-    sval[i] = v[base + i];
-  }
+  repro::load_rows<NW>(s0, s1, sval, k0, k1, v, base, E);
   __syncthreads();
-
   repro::bitonic_sort_rows<NW>(s0, s1, sval, E, T);
-
-  for (int i = threadIdx.x; i < E; i += blockDim.x) {
-    ok0[base + i] = s0[i];
-    if (NW == 2) ok1[base + i] = s1[i];
-    ov[base + i] = sval[i];
-  }
-  if (SAMPLE) {
-    // Sample j of a sorted row is its element (j + 1) * T / s - 1.
-    const int chunk = T / num_samples;
-    const int ns = rows_per_cta * num_samples;
-    const long long sbase = (long long)blockIdx.x * ns;
-    for (int q = threadIdx.x; q < ns; q += blockDim.x) {
-      const int src = (q / num_samples) * T + (q % num_samples + 1) * chunk - 1;
-      sk0[sbase + q] = s0[src];
-      if (NW == 2) sk1[sbase + q] = s1[src];
-      sv[sbase + q] = sval[src];
-    }
-  }
+  repro::store_rows<NW>(s0, s1, sval, ok0, ok1, ov, sk0, sk1, sv, base, E, T,
+                        num_samples);
 }
 
-template <int NW, bool SAMPLE>
+template <int NW>
 cudaError_t launch(const int* k0, const int* k1, const int* v, int* ok0,
                    int* ok1, int* ov, int* sk0, int* sk1, int* sv,
                    long long m, int T, int rows_per_cta, int num_samples,
                    cudaStream_t stream) {
   const int E = T * rows_per_cta;
   const size_t smem = (size_t)(NW + 1) * E * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_sort_kernel<NW, SAMPLE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = repro::allow_shared(tile_sort_kernel<NW>, smem);
   if (err != cudaSuccess) return err;
   const int threads = E / 2 < 1024 ? E / 2 : 1024;
   const long long blocks = m / rows_per_cta;
-  tile_sort_kernel<NW, SAMPLE><<<(unsigned)blocks, threads, smem, stream>>>(
+  tile_sort_kernel<NW><<<(unsigned)blocks, threads, smem, stream>>>(
       k0, k1, v, ok0, ok1, ov, sk0, sk1, sv, T, rows_per_cta, num_samples);
   return cudaGetLastError();
 }
@@ -108,31 +87,10 @@ int repro_tile_sort(int nw, const void* k0, const void* k1, const void* v,
                     void* ok0, void* ok1, void* ov, void* sk0, void* sk1,
                     void* sv, long long m, int T, int rows_per_cta,
                     int num_samples, void* stream) {
-  const int* a = (const int*)k0;
-  const int* b = (const int*)k1;
-  const int* c = (const int*)v;
-  int* o0 = (int*)ok0;
-  int* o1 = (int*)ok1;
-  int* ovv = (int*)ov;
-  int* q0 = (int*)sk0;
-  int* q1 = (int*)sk1;
-  int* qv = (int*)sv;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (nw == 1) {
-    err = num_samples
-              ? launch<1, true>(a, b, c, o0, o1, ovv, q0, q1, qv, m, T,
-                                rows_per_cta, num_samples, st)
-              : launch<1, false>(a, b, c, o0, o1, ovv, q0, q1, qv, m, T,
-                                 rows_per_cta, num_samples, st);
-  } else {
-    err = num_samples
-              ? launch<2, true>(a, b, c, o0, o1, ovv, q0, q1, qv, m, T,
-                                rows_per_cta, num_samples, st)
-              : launch<2, false>(a, b, c, o0, o1, ovv, q0, q1, qv, m, T,
-                                 rows_per_cta, num_samples, st);
-  }
-  return (int)err;
+  auto f = nw == 1 ? &launch<1> : &launch<2>;
+  return (int)f((const int*)k0, (const int*)k1, (const int*)v, (int*)ok0,
+                (int*)ok1, (int*)ov, (int*)sk0, (int*)sk1, (int*)sv, m, T,
+                rows_per_cta, num_samples, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -17,12 +17,15 @@ import torch
 
 from repro_torch.core.key_codec import codec_for
 from repro_torch.kernels import bitonic as _bitonic
+from repro_torch.kernels import merge as _merge
+from repro_torch.kernels import radix as _radix
 from repro_torch.kernels import splitter as _splitter
 from repro_torch.kernels import topk as _topk
 from repro_torch.kernels.bitonic import as_words, like_words, take_samples
 
 COUNTERS = (_bitonic.LAUNCHES, _splitter.LAUNCHES, _splitter.RANKS_LAUNCHES,
-            _topk.LAUNCHES)
+            _topk.LAUNCHES, _radix.LAUNCHES, _merge.LAUNCHES)
+STRATEGIES = ("bitonic", "radix", "merge")
 _PAD = 2**31 - 1  # biased pad word (canonical 0xFFFFFFFF), the worst score
 
 
@@ -59,28 +62,68 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return False
 
 
-def sort_tiles(keys, vals: torch.Tensor):
+def _check_strategy(strategy: str) -> None:
+    if strategy not in STRATEGIES:
+        raise ValueError(
+            f"unknown local-sort strategy {strategy!r}; expected one of "
+            f"{STRATEGIES}"
+        )
+
+
+def _plain_sort(keys, vals, strategy: str, radix_bits: int, merge_run: int):
+    """The plain version of the strategy's kernel (K1, K5 or K6)."""
+    if strategy == "radix":
+        return _radix.radix_sort_rows(keys, vals, radix_bits=radix_bits)
+    if strategy == "merge":
+        return _merge.merge_sort_rows(keys, vals, merge_run=merge_run)
+    return _bitonic.bitonic_network_rows(keys, vals)
+
+
+def sort_tiles(keys, vals: torch.Tensor, *, strategy: str = "bitonic",
+               radix_bits: int = 4, merge_run: int = 512):
     """Sort each row of (m, T) on (*words, payload); T a power of two.
+
+    ``strategy`` picks the local sort: "bitonic" (K1), "radix" (K5,
+    ``radix_bits`` wide digits) or "merge" (K6, runs of ``merge_run``).
+    The radix and merge sorts are stable on the key words alone, so they
+    give the bitonic order where payloads increase within equal keys (as
+    everywhere in the pipeline).
 
     Returns:
         (sorted keys in the input structure, sorted vals).
     """
-    if _on_cuda(vals):
-        return _bitonic.sort_tiles_kv(keys, vals)
-    return _bitonic.bitonic_network_rows(keys, vals)
+    _check_strategy(strategy)
+    if not _on_cuda(vals):
+        return _plain_sort(keys, vals, strategy, radix_bits, merge_run)
+    if strategy == "radix":
+        return _radix.sort_tiles_kv(keys, vals, radix_bits=radix_bits)
+    if strategy == "merge":
+        return _merge.sort_tiles_kv(keys, vals, merge_run=merge_run)
+    return _bitonic.sort_tiles_kv(keys, vals)
 
 
-def sort_tiles_sample(keys, vals: torch.Tensor, *, num_samples: int):
-    """Sorted (m, T) tiles plus s equidistant samples per tile.
+def sort_tiles_sample(keys, vals: torch.Tensor, *, num_samples: int,
+                      strategy: str = "bitonic", radix_bits: int = 4,
+                      merge_run: int = 512):
+    """Sorted (m, T) tiles plus s equidistant samples per tile, with the
+    local sort of :func:`sort_tiles`; the kernels emit the samples from
+    their epilogue.
 
     Returns:
         (sorted keys, sorted vals, sample keys (m, s), sample vals (m, s)).
     """
-    if _on_cuda(vals):
-        return _bitonic.sort_tiles_sample_kv(keys, vals, num_samples=num_samples)
-    sk, sv = _bitonic.bitonic_network_rows(keys, vals)
-    sw = tuple(take_samples(w, num_samples) for w in as_words(sk))
-    return sk, sv, like_words(sw, keys), take_samples(sv, num_samples)
+    _check_strategy(strategy)
+    if not _on_cuda(vals):
+        sk, sv = _plain_sort(keys, vals, strategy, radix_bits, merge_run)
+        sw = tuple(take_samples(w, num_samples) for w in as_words(sk))
+        return sk, sv, like_words(sw, keys), take_samples(sv, num_samples)
+    if strategy == "radix":
+        return _radix.sort_tiles_sample_kv(
+            keys, vals, num_samples=num_samples, radix_bits=radix_bits)
+    if strategy == "merge":
+        return _merge.sort_tiles_sample_kv(
+            keys, vals, num_samples=num_samples, merge_run=merge_run)
+    return _bitonic.sort_tiles_sample_kv(keys, vals, num_samples=num_samples)
 
 
 def splitter_partition(keys, vals, sp_keys, sp_vals):
@@ -112,13 +155,15 @@ def topk(x, k: int, *, device=None):
         (values (R, k) in x.dtype, indices (R, k) int32), on ``device``;
         ties toward the smaller index.  C is padded up to a power of two
         with worst-score columns, which never enter the top k (k <= C,
-        and pads lose index ties).
+        and pads lose index ties), and K4 sorts each row in one CTA.
+        Rows that pad to more than ``bitonic.MAX_TILE`` columns do not
+        fit a CTA: their words are sorted with the column payload by the
+        bucket-sort executor (``DEFAULT_CONFIG``, as the partial sort
+        sorts its wide rows, ROADMAP.md D3), unpadded since the pads
+        never enter the top k, and the first k columns are taken.
     Raises:
         RuntimeError: for CUDA when it is not available.
-        ValueError: for k out of range, or when C pads to more than
-            ``bitonic.MAX_TILE`` columns (one row lives in one CTA's
-            shared memory); ``repro_torch.core.topk_batched`` takes rows
-            of any width.
+        ValueError: for k out of range.
     """
     x = torch.as_tensor(x, device=resolve_device(device))
     if x.dim() != 2:
@@ -127,19 +172,33 @@ def topk(x, k: int, *, device=None):
     if not 1 <= k <= c:
         raise ValueError(f"top-k needs 1 <= k <= C = {c}, got {k}")
     cp = 1 << (c - 1).bit_length()
-    if cp > _bitonic.MAX_TILE:
-        raise ValueError(
-            f"ops.topk sorts rows of up to {_bitonic.MAX_TILE} columns after "
-            f"padding to a power of two; C = {c} pads to {cp}: use "
-            "repro_torch.core.topk_batched for wider rows"
-        )
     codec = codec_for(x.dtype, descending=True)
     words = codec.encode(x)
-    if cp > c:
-        pad = torch.full((r, cp - c), _PAD, dtype=torch.int32, device=x.device)
-        words = tuple(torch.cat([w, pad], dim=1) for w in words)
-    if _on_cuda(words[0]):
-        tk, ti = _topk.topk_desc_cuda(words, k)
+    if cp > _bitonic.MAX_TILE:
+        tk, ti = _wide_rows_topk(words, k)
     else:
-        tk, ti = _topk.topk_desc(words, k)
+        if cp > c:
+            pad = torch.full((r, cp - c), _PAD, dtype=torch.int32,
+                             device=x.device)
+            words = tuple(torch.cat([w, pad], dim=1) for w in words)
+        if _on_cuda(words[0]):
+            tk, ti = _topk.topk_desc_cuda(words, k)
+        else:
+            tk, ti = _topk.topk_desc(words, k)
     return codec.decode(tk), ti
+
+
+def _wide_rows_topk(words, k: int):
+    """The k smallest (*words, column) of each row of (R, C) words, sorted
+    whole by the bucket-sort executor on the ``DEFAULT_CONFIG`` plan."""
+    from repro_torch.core.bucket_sort import _execute_packed
+    from repro_torch.core.plan import build_words_plan
+    from repro_torch.core.sort_config import DEFAULT_CONFIG
+
+    r, c = words[0].shape
+    cols = torch.arange(c, dtype=torch.int32, device=words[0].device)
+    if r == 0:
+        return tuple(w[:, :k] for w in words), cols[None, :k].expand(0, k)
+    plan = build_words_plan(c, len(words), DEFAULT_CONFIG, rows=r)
+    skw, sv = _execute_packed(words, cols.expand(r, c).contiguous(), plan, c)
+    return tuple(w[:, :k] for w in skw), sv[:, :k]

@@ -181,3 +181,105 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ops.sort_tiles(words[0].t().contiguous().t(), vals)
     with pytest.raises(ValueError, match="contiguous int32"):
         ops.sort_tiles(words[0].long(), vals)
+
+
+def random_payload_tiles(gen, m, t, nw):
+    """Random key words and random (not unique) payloads: K5 and K6 are
+    defined for any payload, and so are their plain versions."""
+    words = tuple(
+        torch.randint(-(2**31), 2**31 - 1, (m, t), generator=gen, device="cuda",
+                      dtype=torch.int32) for _ in range(nw)
+    )
+    vals = torch.randint(-(2**31), 2**31 - 1, (m, t), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    return words, vals
+
+
+@pytest.mark.parametrize("data", ["duplicates", "random"])
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("radix_bits", [1, 2, 4])
+@pytest.mark.parametrize("t,s", [(2, 0), (16, 4), (64, 8), (4096, 64), (16384, 0)])
+def test_radix_sort_kernel_equals_plain_version(cuda, t, s, radix_bits, nw, data):
+    from repro_torch.kernels import radix
+
+    make = tiles if data == "duplicates" else random_payload_tiles
+    # Odd row counts for narrow rows: fewer rows share a CTA.
+    words, vals = make(cuda, max(1, (1 << 17) // t) + (t < 64), t, nw)
+    before = radix.LAUNCHES.count
+    if s:
+        got = radix.sort_tiles_sample_kv(words, vals, num_samples=s,
+                                         radix_bits=radix_bits)
+    else:
+        got = radix.sort_tiles_kv(words, vals, radix_bits=radix_bits)
+    torch.cuda.synchronize()
+    assert radix.LAUNCHES.count == before + 1
+    pw, pv = radix.radix_sort_rows(words, vals, radix_bits=radix_bits)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], pw))
+    assert torch.equal(got[1], pv)
+    if s:
+        assert torch.equal(got[3], pv[:, t // s - 1::t // s])
+
+
+@pytest.mark.parametrize("data", ["duplicates", "random"])
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("merge_run", [2, 64, 512])
+@pytest.mark.parametrize("t,s", [(2, 0), (16, 4), (64, 8), (4096, 64), (16384, 0)])
+def test_merge_sort_kernel_equals_plain_version(cuda, t, s, merge_run, nw, data):
+    from repro_torch.kernels import merge
+
+    make = tiles if data == "duplicates" else random_payload_tiles
+    words, vals = make(cuda, max(1, (1 << 17) // t) + (t < 64), t, nw)
+    before = merge.LAUNCHES.count
+    if s:
+        got = merge.sort_tiles_sample_kv(words, vals, num_samples=s,
+                                         merge_run=merge_run)
+    else:
+        got = merge.sort_tiles_kv(words, vals, merge_run=merge_run)
+    torch.cuda.synchronize()
+    assert merge.LAUNCHES.count == before + 1
+    pw, pv = merge.merge_sort_rows(words, vals, merge_run=merge_run)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], pw))
+    assert torch.equal(got[1], pv)
+    if s:
+        assert torch.equal(got[3], pv[:, t // s - 1::t // s])
+
+
+@pytest.mark.parametrize("strategy", ["radix", "merge"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.int64])
+def test_strategy_main_path_equals_stable_torch_sort(cuda, dtype, strategy):
+    from repro_torch.core import SortConfig, bucket_sort, partial_sort
+    from repro_torch.kernels import ops
+
+    cfg = SortConfig(strategy=strategy)
+    x = torch.randint(-1000, 1000, (300_000,), generator=cuda, device="cuda").to(dtype)
+    ops.reset_launch_counts()
+    perm = bucket_sort.argsort(x, cfg)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    sorter = "radix_sort" if strategy == "radix" else "merge_sort"
+    assert counts[sorter] > 0 and counts["tile_sort"] == 0
+    assert torch.equal(perm.long(), torch.sort(x, stable=True).indices)
+    unfused = SortConfig(strategy=strategy, fuse_sampling=False)
+    assert torch.equal(bucket_sort.sort(x, unfused), torch.sort(x, stable=True).values)
+    y = x[: 8 * 20_000].reshape(8, -1).float()
+    v, i = partial_sort.topk_batched(y, 50, cfg)
+    want = torch.sort(y, dim=1, descending=True, stable=True)
+    assert torch.equal(v, want.values[:, :50])
+    assert torch.equal(i.long(), want.indices[:, :50])
+
+
+def test_router_top_k_of_rows_wider_than_a_cta(cuda):
+    """ops.topk of rows that pad past 16,384 columns: the executor sorts
+    them (K1 and K2), no longer a ValueError."""
+    from repro_torch.kernels import ops
+
+    x = torch.randn((4, 20_000), generator=cuda, device="cuda")
+    x = x.to(torch.bfloat16).float()  # ties
+    ops.reset_launch_counts()
+    v, i = ops.topk(x, 9)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["topk"] == 0 and counts["tile_sort"] > 0
+    want = torch.sort(x, dim=1, descending=True, stable=True)
+    assert torch.equal(v, want.values[:, :9])
+    assert torch.equal(i.long(), want.indices[:, :9])

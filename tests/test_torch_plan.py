@@ -1,7 +1,8 @@
 """The port's config and planners against the JAX package's.
 
 ``plan_tree`` (kind, rows, length, lp, tile, s, m, s_round, cap,
-fuse_ranking and the recursion tree) must be equal to the reference
+fuse_ranking, fuse_sampling, the local-sort strategy and its knobs, and
+the recursion tree) must be equal to the reference
 plan's, bit for bit, across a sweep of (length, rows, words, config);
 so must every algorithmic field of the top-k plan.  Where the reference
 planner cannot finish (a level that never shrinks), the port refuses up
@@ -42,7 +43,7 @@ LENGTHS = [1, 2, 100, 512, 513, 4097, 8193, 77_777, 10**6, 1 << 26]
 
 
 TOPK_FIELDS = ("rows", "length", "k", "lp", "m", "tile", "s", "cap", "ccap",
-               "direct_max")
+               "direct_max", "strategy", "radix_bits", "merge_run")
 
 
 def jax_cfg(tile, s, direct_max, fuse_ranking=True):
@@ -225,9 +226,7 @@ def test_config_errors_name_the_field(field, value, match):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("strategy", "radix", "Queue 1 item 6"),
     ("relocation", "scatter", "Queue 1 item 4"),
-    ("fuse_sampling", False, "Queue 1 item 4"),
     ("plan", "autotune", "Queue 1 item 9"),
     ("check", "bounds", "Queue 1 item 7"),
 ])
