@@ -11,13 +11,14 @@ K5 radix sort, K6 merge sort) and then
 
 1. holds each kernel bit for bit against its plain PyTorch version on
    the card, at the row widths, word counts, sample and splitter counts
-   of the main path (rows capped to 2^22 elements per check; K3 on
-   sorted and on unsorted tiles; K4 at 16 to 1024 columns, one and two
-   words, k in {1, 6, 8}; K5 and K6 also at T in {2, 64, 4096, 8192,
-   16384}, one and two words, 0 or 64 samples, radix_bits 1, 2, 4 and
-   merge_run 64, 512, on duplicate keys with arange payloads and on
-   random keys and payloads), and at a main-path shape, which is also
-   timed;
+   of the main path (rows capped to 2^22 elements per check; K2 also at
+   T in {2, 32}, one window; K3 on sorted and on unsorted tiles, and on
+   one tile of 2^22, which it splits across CTAs; K4 at 16 to 1024
+   columns, one and two words, k in {1, 6, 8}; K5 and K6 also at T in
+   {2, 64, 4096, 8192, 16384}, one and two words, 0 or 64 samples,
+   radix_bits 1, 2, 4 and merge_run 64, 512, on duplicate keys with
+   arange payloads and on random keys and payloads), and at a main-path
+   shape, which is also timed;
 2. drives the main path through the public entry points on seeded
    numpy data, fifteen cases: ``sort`` / ``argsort`` 2^26 int32,
    ``argsort`` 2^24 float32 with NaN / +-inf / -0.0, ``sort_kv`` 2^24
@@ -36,8 +37,11 @@ K5 radix sort, K6 merge sort) and then
 3. times each entry point (median of CUDA-event-timed runs) beside
    ``torch.sort`` or ``torch.topk``, with the peak device memory, and
    profiles the 2^26 sort (bitonic and radix) and the batched top-k;
-4. prints a JSON line of per-kernel numbers, the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+4. prints a JSON line of per-kernel numbers (a kernel's and its library
+   call's ``ms``, one call between two events, the host's time to launch
+   it included; ``device_ms`` and ``library_device_ms``, the device's time
+   per launch over 20 launches that it runs back to back), the card's name
+   and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line;
 it also exits non-zero when CUDA is not available.
@@ -96,6 +100,35 @@ def time_ms(fn, reps: int) -> float:
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def per_launch_ms(fn, launches: int = 20, reps: int = 3) -> float:
+    """Device time of one launch, in ms: the median over ``reps`` of CUDA
+    events around ``launches`` back-to-back calls, enqueued behind a spin
+    of the device (``torch.cuda._sleep``) that outlasts their enqueueing,
+    so that the device runs them back to back whatever the host's time to
+    launch one (the wrappers' Python), which this leaves out."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    host_s = (time.perf_counter() - t0) / launches
+    torch.cuda.synchronize()
+    # 2e9 cycles a second covers the card's clock; thrice the host's time.
+    spin = int(3 * host_s * launches * 2e9) + 1000
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / launches)
     return statistics.median(times)
 
 
@@ -224,6 +257,8 @@ def check_kernels(launch_shapes, gen):
            for s in (0, min(64, t))}
     k2 = {(t, nw, s) for k, _, t, s, nw, _ in launch_shapes
           if k == "splitter_partition"}
+    # Tiles no wider than K2's window of 32, which is then the whole tile.
+    k2 |= {(t, nw, s) for t, s in ((2, 1), (32, 7)) for nw in (1, 2)}
     for t, nw, s in sorted(k1):
         words, vals = random_tiles(max(1, CHECK_ELEMENTS // t), t, nw, gen)
         if s:
@@ -275,6 +310,7 @@ def check_kernels(launch_shapes, gen):
                   f"max_abs_err={err}")
             if err:
                 raise AssertionError("K3 disagrees with its plain version")
+    check_k3_split(gen)
     k4 = {(c, nw, k) for c in (16, 64, 128, 1024) for nw in (1, 2)
           for k in (1, 6, 8)}
     k4 |= {(t, nw, s) for k, _, t, s, nw, _ in launch_shapes if k == "topk"}
@@ -288,6 +324,36 @@ def check_kernels(launch_shapes, gen):
         if err:
             raise AssertionError("K4 disagrees with its plain version")
     check_row_sorters(launch_shapes, gen)
+
+
+def check_k3_split(gen):
+    """K3 on one tile of 2^22 elements, which it cuts across CTAs, with 7
+    splitters: unsorted tiles with unsorted splitters drawn from them, and
+    the tile sorted (by the oracle: no row sort takes 2^22) with them
+    sorted."""
+    from repro_torch.kernels import ref, splitter
+
+    t, s = CHECK_ELEMENTS, 7
+    if splitter.ranks_geometry(1, t)[0] < 2:
+        raise AssertionError("K3 does not split a lone tile of 2^22")
+    for nw in (1, 2):
+        words, vals = random_tiles(1, t, nw, gen)
+        pick = torch.randint(0, t, (1, s), generator=gen, device="cuda")
+        sk, sv = ref.sort_tiles_kv(words, vals)
+        spick = torch.sort(pick, dim=1).values
+        for order, args in (
+            ("unsorted", (words, vals, tuple(torch.gather(w, 1, pick) for w in words),
+                          torch.gather(vals, 1, pick))),
+            ("sorted", (sk, sv, tuple(torch.gather(w, 1, spick) for w in sk),
+                        torch.gather(sv, 1, spick))),
+        ):
+            got = splitter.splitter_ranks_cuda(*args)
+            torch.cuda.synchronize()
+            err = max_abs_err((got,), (splitter.splitter_ranks(*args),))
+            print(f"K3 splitter_ranks one tile T={t} nw={nw} S={s} {order}, "
+                  f"split: max_abs_err={err}")
+            if err:
+                raise AssertionError("K3 disagrees with its plain version")
 
 
 def row_sorter(kernel):
@@ -341,7 +407,8 @@ def check_row_sorters(launch_shapes, gen):
 
 
 def measure_k1(m, t, nw, s, gen):
-    """K1 at one main-path shape: error, kernel / plain / library ms, bound."""
+    """K1 at one main-path shape: the error, the launch to time, the plain
+    version's ms, the library call to time (or None), bytes, operations."""
     from repro_torch.kernels import bitonic
 
     words, vals = random_tiles(m, t, nw, gen)
@@ -351,19 +418,19 @@ def measure_k1(m, t, nw, s, gen):
             bitonic.take_samples(pv, s))
     err = max_abs_err(flat(got), flat(want))
     del pw, pv, want
-    ms = time_ms(lambda: bitonic.sort_tiles_sample_kv(
-        words, vals, num_samples=s), 10)
+    run = functools.partial(bitonic.sort_tiles_sample_kv, words, vals,
+                            num_samples=s)
     plain_ms = time_ms(lambda: bitonic.bitonic_network_rows(words, vals), 2)
-    library_ms = None
+    library = None
     if nw == 1:
         composite = (words[0].long() << 32) | vals.long()
-        library_ms = time_ms(lambda: torch.sort(composite, dim=1), 5)
+        library = functools.partial(torch.sort, composite, dim=1)
     nbytes = 4 * (nw + 1) * (2 * m * t + m * s)
     # Any comparison sort of T distinct elements needs log2(T!) compares
     # per row, one operation each at least (not the bitonic network's
     # own T/2 * log2 T * (log2 T + 1) / 2 compare-exchanges).
     ops = m * math.lgamma(t + 1) / math.log(2)
-    return err, ms, plain_ms, library_ms, nbytes, ops
+    return err, run, plain_ms, library, nbytes, ops
 
 
 def measure_row_sorter(kernel, m, t, nw, s, knob, gen):
@@ -381,13 +448,13 @@ def measure_row_sorter(kernel, m, t, nw, s, knob, gen):
             bitonic.take_samples(pv, s))
     err = max_abs_err(flat(got), flat(want))
     del got, pw, pv, want
-    ms = time_ms(lambda: wrap_sample(words, vals, num_samples=s, **kw), 10)
+    run = functools.partial(wrap_sample, words, vals, num_samples=s, **kw)
     plain_ms = time_ms(lambda: plain(words, vals, **kw), 1)
     composite = (words[0].long() << 32) | vals.long()
-    library_ms = time_ms(lambda: torch.sort(composite, dim=1), 5)
+    library = functools.partial(torch.sort, composite, dim=1)
     nbytes = 4 * (nw + 1) * (2 * m * t + m * s)
     ops = m * math.lgamma(t + 1) / math.log(2)  # as K1: the same work
-    return err, ms, plain_ms, library_ms, nbytes, ops
+    return err, run, plain_ms, library, nbytes, ops
 
 
 def measure_k2(m, t, nw, num_splitters, gen):
@@ -399,18 +466,18 @@ def measure_k2(m, t, nw, num_splitters, gen):
     spw, spv = real_splitters(tkw, tv, skw, sv, num_splitters, ref)
     err = max_abs_err(splitter.splitter_partition_cuda(tkw, tv, spw, spv),
                       splitter.splitter_partition(tkw, tv, spw, spv))
-    ms = time_ms(lambda: splitter.splitter_partition_cuda(tkw, tv, spw, spv), 10)
+    run = functools.partial(splitter.splitter_partition_cuda, tkw, tv, spw, spv)
     plain_ms = time_ms(lambda: splitter.splitter_partition(tkw, tv, spw, spv), 1)
-    library_ms = None
+    library = None
     if nw == 1:
         tiles = (tkw[0].long() << 32) | tv.long()
         sps = (spw[0].long() << 32) | spv.long()
-        library_ms = time_ms(lambda: torch.searchsorted(tiles, sps), 10)
+        library = functools.partial(torch.searchsorted, tiles, sps)
     s = num_splitters
     probes = m * s * int(math.log2(t))
     nbytes = 4 * ((nw + 1) * m * s + m * s + m * (s + 1) + (nw + 1) * probes)
     ops = probes * 2 * (nw + 1)  # a compare and an equality per word
-    return err, ms, plain_ms, library_ms, nbytes, ops
+    return err, run, plain_ms, library, nbytes, ops
 
 
 def measure_k3(m, t, nw, num_splitters, gen):
@@ -424,20 +491,20 @@ def measure_k3(m, t, nw, num_splitters, gen):
     args = (tkw, tv, spw, spv)
     err = max_abs_err((splitter.splitter_ranks_cuda(*args),),
                       (splitter.splitter_ranks(*args),))
-    ms = time_ms(lambda: splitter.splitter_ranks_cuda(*args), 10)
+    run = functools.partial(splitter.splitter_ranks_cuda, *args)
     plain_ms = time_ms(lambda: splitter.splitter_ranks(*args), 1)
-    library_ms = None
+    library = None
     if nw == 1:
         tiles = (tkw[0].long() << 32) | tv.long()
         sps = (spw[0].long() << 32) | spv.long()
-        library_ms = time_ms(lambda: torch.searchsorted(tiles, sps), 10)
+        library = functools.partial(torch.searchsorted, tiles, sps)
     s = num_splitters
     # The contract allows unsorted tiles, so the whole tile is read once.
     nbytes = 4 * ((nw + 1) * m * t + (nw + 1) * m * s + m * s)
     # Locating each element among S sorted splitters takes at least
     # ceil(log2(S + 1)) compares.
     ops = m * t * math.ceil(math.log2(s + 1))
-    return err, ms, plain_ms, library_ms, nbytes, ops
+    return err, run, plain_ms, library, nbytes, ops
 
 
 def measure_k4(r, c, nw, k, gen):
@@ -447,15 +514,74 @@ def measure_k4(r, c, nw, k, gen):
     words, _ = random_tiles(r, c, nw, gen)
     err = max_abs_err(flat(topk.topk_desc_cuda(words, k)),
                       flat(topk.topk_desc(words, k)))
-    ms = time_ms(lambda: topk.topk_desc_cuda(words, k), 10)
+    run = functools.partial(topk.topk_desc_cuda, words, k)
     plain_ms = time_ms(lambda: topk.topk_desc(words, k), 2)
-    library_ms = None
+    library = None
     if nw == 1:  # timing only: torch.topk's tie order is its own
-        library_ms = time_ms(
-            lambda: torch.topk(words[0], k, dim=1, largest=False), 10)
+        library = functools.partial(torch.topk, words[0], k, dim=1, largest=False)
     nbytes = 4 * (nw * r * c + (nw + 1) * r * k)
     ops = r * (c - 1)  # the k smallest of c need at least c - 1 compares
-    return err, ms, plain_ms, library_ms, nbytes, ops
+    return err, run, plain_ms, library, nbytes, ops
+
+
+def kernel_table():
+    """(name, measure, shape, source, replaces) of each kernel's timed
+    launch: K1 and K2 at the top-level shape of the 2^26 int32 sort, K3 at
+    the serving top-k's tiles, K4 at the 128-expert router's rows; K5 and
+    K6 at K1's shape, with the default radix_bits and merge_run."""
+    from repro_torch.core import DEFAULT_CONFIG, build_plan, build_topk_plan
+
+    top = build_plan(1 << 26, torch.int32, DEFAULT_CONFIG).root
+    serve = build_topk_plan(151_936, 50, torch.float32, DEFAULT_CONFIG, rows=256)
+    k1_shape = (top.rows * top.m, top.tile, 1, top.s)
+    return [
+        ("tile_sort", measure_k1, k1_shape,
+         "src/repro_torch/kernels/csrc/tile_sort.cu",
+         "src/repro/kernels/bitonic.py:275"),
+        ("splitter_partition", measure_k2,
+         (top.rows * top.m, top.tile, 1, top.s_round - 1),
+         "src/repro_torch/kernels/csrc/splitter_partition.cu",
+         "src/repro/kernels/splitter.py:161"),
+        ("splitter_ranks", measure_k3,
+         (serve.rows * serve.m, serve.tile, 1, serve.s - 1),
+         "src/repro_torch/kernels/csrc/splitter_ranks.cu",
+         "src/repro/kernels/splitter.py:69"),
+        ("topk", measure_k4, (65536, 128, 1, 8),
+         "src/repro_torch/kernels/csrc/topk.cu",
+         "src/repro/kernels/topk.py:41"),
+        ("radix_sort", functools.partial(measure_row_sorter, "radix_sort"),
+         k1_shape + (DEFAULT_CONFIG.radix_bits,),
+         "src/repro_torch/kernels/csrc/radix_sort.cu",
+         "src/repro/kernels/radix.py:168"),
+        ("merge_sort", functools.partial(measure_row_sorter, "merge_sort"),
+         k1_shape + (DEFAULT_CONFIG.merge_run,),
+         "src/repro_torch/kernels/csrc/merge_sort.cu",
+         "src/repro/kernels/merge.py:102"),
+    ]
+
+
+def kernel_row(kernel, measure, shape, source, replaces, gen, launches):
+    """One kernel's entry of the kernels line: checked against its plain
+    version, timed beside it and beside its library call, with its bound.
+    ``ms`` and ``library_ms`` are one call between two events, the host's
+    time to launch it included; ``device_ms`` and ``library_device_ms``
+    the device's time per launch (:func:`per_launch_ms`)."""
+    err, run, plain_ms, library, nbytes, nops = measure(*shape, gen)
+    if err:
+        raise AssertionError(f"{kernel} disagrees with its plain version")
+    bytes_ms = nbytes / BYTES_PER_S * 1e3
+    ops_ms = nops / INT32_OPS_PER_S * 1e3
+    return {
+        "name": kernel, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "equal": err == 0, "max_abs_err": err,
+        "shape": list(shape), "ms": time_ms(run, 10),
+        "device_ms": per_launch_ms(run), "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": time_ms(library, 10) if library else None,
+        "library_device_ms": per_launch_ms(library) if library else None,
+    }
 
 
 def profile_main_path(case):
@@ -770,7 +896,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from repro_torch.core import DEFAULT_CONFIG, build_plan, build_topk_plan
     from repro_torch.kernels import _build, ops
 
     gpu = gpu_line()
@@ -841,52 +966,8 @@ def main() -> int:
     profile_main_path(cases[6])  # the batched top-k of the serving case
     profile_main_path(cases[10])  # the 2^26 sort through K5
 
-    # K1 and K2 at the top-level shape of the 2^26 int32 sort, K3 at the
-    # serving top-k's tiles, K4 at the 128-expert router's rows; K5 and K6
-    # at K1's shape, with the default radix_bits and merge_run.
-    top = build_plan(1 << 26, torch.int32, DEFAULT_CONFIG).root
-    serve = build_topk_plan(151_936, 50, torch.float32, DEFAULT_CONFIG, rows=256)
-    k1_shape = (top.rows * top.m, top.tile, 1, top.s)
-    rows = []
-    for kernel, measure, shape, source, replaces in (
-        ("tile_sort", measure_k1, k1_shape,
-         "src/repro_torch/kernels/csrc/tile_sort.cu",
-         "src/repro/kernels/bitonic.py:275"),
-        ("splitter_partition", measure_k2,
-         (top.rows * top.m, top.tile, 1, top.s_round - 1),
-         "src/repro_torch/kernels/csrc/splitter_partition.cu",
-         "src/repro/kernels/splitter.py:161"),
-        ("splitter_ranks", measure_k3,
-         (serve.rows * serve.m, serve.tile, 1, serve.s - 1),
-         "src/repro_torch/kernels/csrc/splitter_ranks.cu",
-         "src/repro/kernels/splitter.py:69"),
-        ("topk", measure_k4, (65536, 128, 1, 8),
-         "src/repro_torch/kernels/csrc/topk.cu",
-         "src/repro/kernels/topk.py:41"),
-        ("radix_sort", functools.partial(measure_row_sorter, "radix_sort"),
-         k1_shape + (DEFAULT_CONFIG.radix_bits,),
-         "src/repro_torch/kernels/csrc/radix_sort.cu",
-         "src/repro/kernels/radix.py:168"),
-        ("merge_sort", functools.partial(measure_row_sorter, "merge_sort"),
-         k1_shape + (DEFAULT_CONFIG.merge_run,),
-         "src/repro_torch/kernels/csrc/merge_sort.cu",
-         "src/repro/kernels/merge.py:102"),
-    ):
-        err, ms, plain_ms, library_ms, nbytes, nops = measure(*shape, gen)
-        if err:
-            raise AssertionError(f"{kernel} disagrees with its plain version")
-        bytes_ms = nbytes / BYTES_PER_S * 1e3
-        ops_ms = nops / INT32_OPS_PER_S * 1e3
-        rows.append({
-            "name": kernel, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": totals[kernel],
-            "equal": err == 0, "max_abs_err": err,
-            "shape": list(shape), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms,
-        })
-
+    rows = [kernel_row(*entry, gen, totals[entry[0]])
+            for entry in kernel_table()]
     print(json.dumps({"kernels": rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

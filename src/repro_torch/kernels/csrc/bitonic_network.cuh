@@ -2,8 +2,9 @@
 // kernels/bitonic.py:bitonic_network_rows, on rows held in shared memory,
 // and the lexicographic order of (key words, payload) it sorts by.
 //
-// Included by K1 (tile_sort.cu), K4 (topk.cu) and, for the comparison
-// alone, K3 (splitter_ranks.cu), so the network and the order exist once.
+// Included by K1 (tile_sort.cu), K4 (topk.cu) and K6 (merge_sort.cu), so
+// the network exists once.  K2 and K3 search the same order on packed keys
+// (packed_key.cuh).
 //
 // Key words are the port's biased int32 words (core/key_codec.py), so the
 // order on (*words, payload) is plain signed int32 order word by word.

@@ -5,10 +5,12 @@ bucket counts (step 7) in K2.
 PyTorch versions and keep the JAX package's counting formulation
 (``_lt_matrix`` summed over the tile), so they hold for unsorted tiles
 too.  :func:`splitter_partition_cuda` wraps the CUDA kernel K2
-(``csrc/splitter_partition.cu``), which binary-searches each splitter in
-its sorted tile; :func:`splitter_ranks_cuda` wraps K3
-(``csrc/splitter_ranks.cu``), which counts like the plain version and so
-takes any tiles and any splitters.
+(``csrc/splitter_partition.cu``), which searches each splitter in its
+sorted tile through a coarse index; :func:`splitter_ranks_cuda` wraps K3
+(``csrc/splitter_ranks.cu``), which searches each element among its
+tile's splitters and so takes any tiles and any splitters.  Their launch
+geometry is pure Python (:func:`partition_geometry`,
+:func:`ranks_geometry`).
 """
 
 from __future__ import annotations
@@ -23,10 +25,20 @@ from repro_torch.kernels.bitonic import as_words
 LAUNCHES = _build.LaunchCounter("splitter_partition")
 RANKS_LAUNCHES = _build.LaunchCounter("splitter_ranks")
 
-# Tiles one kernel CTA partitions (64 threads each).
+# Tiles one K2 CTA partitions at most, one to eight warps each.
 _TILES_PER_CTA = 4
-# Splitter ranks one CTA keeps in 48 KB of shared memory.
-_MAX_SPLITTERS = 48 * 1024 // 4
+# K2's window, one 128-byte line of int32 per word array, and the
+# splitters a warp searches at once (kBatch in splitter_partition.cu).
+_WINDOW = 32
+_WARP_SPLITTERS = 8
+# Shared memory one CTA may take on the H100 (227 KB).
+_SMEM_LIMIT = 232_448
+# K3: threads a CTA at most and contiguous elements a thread takes per
+# slab (kMaxThreads and kRun in splitter_ranks.cu), and the CTAs that
+# fill the card's 132 SMs a few deep, below which a tile is split.
+_RANKS_THREADS = 256
+_RANKS_RUN = 16
+_FILL_CTAS = 4 * 132
 # Elements of the (rows, T, S) comparison matrix the plain version
 # builds at once; it walks the tiles in chunks to stay near this.
 _PLAIN_CHUNK = 1 << 26
@@ -89,8 +101,60 @@ def splitter_partition(keys, vals, sp_keys, sp_vals):
 
 
 def partition_block_rows(m: int) -> int:
-    """Tiles one K2 CTA takes for m tiles (the kernel masks the edge)."""
+    """Tiles one K2 CTA takes at most for m tiles (the kernel masks the
+    edge)."""
     return max(1, min(_TILES_PER_CTA, m))
+
+
+def partition_geometry(m: int, t: int, s: int, nw: int):
+    """K2's launch for m tiles of t >= 1 elements, s >= 1 splitters and
+    nw key words: (tiles per CTA, warps per tile, window W, coarse
+    entries G per tile, dynamic shared-memory bytes).
+
+    A warp searches 8 splitters at a time, so a tile takes up to eight
+    warps; a CTA at most 256 threads.  Shared memory holds each tile's
+    coarse index (the last of every W elements, packed: 8 bytes, 12 with
+    two words) and its s ranks.
+
+    Raises:
+        ValueError: when one tile's share exceeds the 227 KB a CTA may
+            have (s in the tens of thousands).
+    """
+    window = min(_WINDOW, t)
+    groups = -(-t // window)
+    warps = min(-(-s // _WARP_SPLITTERS), 8)
+    per_tile = (8 + 4 * (nw == 2)) * groups + 4 * s
+    tiles = min(partition_block_rows(m), 8 // warps, _SMEM_LIMIT // per_tile)
+    if tiles < 1:
+        raise ValueError(
+            f"splitter partition of T={t}, S={s}, {nw} word(s) needs "
+            f"{per_tile} bytes of shared memory a tile, above {_SMEM_LIMIT}"
+        )
+    return tiles, warps, window, groups, tiles * per_tile
+
+
+def ranks_geometry(m: int, t: int):
+    """K3's launch for m >= 1 tiles of t >= 1 elements: (split, part_len,
+    threads).
+
+    CTA b takes part b % split of tile b // split, elements
+    [part * part_len, min(t, (part + 1) * part_len)), in slabs of
+    threads * 16; thread x takes elements [x * 16, x * 16 + 16) of each
+    slab.  A tile is split only when m tiles are too few CTAs to fill the
+    card; part_len is a multiple of 16, so the kernel's 16-byte copies stay
+    aligned.
+    """
+    split = 1
+    if m < _FILL_CTAS:
+        split = max(1, min(-(-_FILL_CTAS // m),
+                           t // (_RANKS_THREADS * _RANKS_RUN)))
+    part_len = -(-t // split)
+    part_len += -part_len % _RANKS_RUN
+    split = -(-t // part_len)
+    # No more threads than the part has runs of 16, and at least a warp.
+    threads = min(_RANKS_THREADS,
+                  max(32, 1 << (-(-part_len // _RANKS_RUN) - 1).bit_length()))
+    return split, part_len, threads
 
 
 def _lib(name: str, pointers: int, ints: int) -> ctypes.CDLL:
@@ -136,35 +200,40 @@ def splitter_partition_cuda(keys, vals, sp_keys, sp_vals):
     """Launch K2 on CUDA tensors.
 
     PRECONDITION: every tile (row of ``keys``/``vals``) is sorted
-    ascending on (*words, payload), as K1 leaves it on the sort's path.
-    The kernel binary-searches each splitter in its tile, which equals
-    the plain version's count only on sorted tiles; it does not check.
+    ascending on (*words, payload), as K1, K5 and K6 leave it on the
+    sort's path.  The kernel searches each splitter in its tile, which
+    equals the plain version's count only on sorted tiles; it does not
+    check.
+
+    One tile's coarse index and ranks sit in a CTA's shared memory
+    (:func:`partition_geometry`), which bounds T and S: at S = 63, T up to
+    2^19 with one or two words, far above ``bitonic.MAX_TILE``, the
+    widest tile any row sort leaves.
 
     Args/Returns: as :func:`splitter_partition`.
     Raises:
-        ValueError: for tensors the kernel does not take.
+        ValueError: for tensors the kernel does not take, and for tiles
+            whose share of shared memory exceeds 227 KB.
         RuntimeError: when the launch fails.
     """
     words, sp_words = as_words(keys), as_words(sp_keys)
     nw, m, t, s = _check_cuda_args("splitter partition", words, vals,
                                    sp_words, sp_vals)
-    if not 1 <= s <= _MAX_SPLITTERS:
-        raise ValueError(
-            f"splitter partition takes 1 <= S <= {_MAX_SPLITTERS}, got {s}"
-        )
-    # The ranks of a CTA's tiles sit in 48 KB of static-limit shared memory.
-    tiles = min(partition_block_rows(m), _MAX_SPLITTERS // s)
+    if s < 1:
+        raise ValueError(f"splitter partition takes S >= 1, got {s}")
+    if m == 0 or t == 0:
+        return (torch.zeros((m, s), dtype=torch.int32, device=vals.device),
+                torch.zeros((m, s + 1), dtype=torch.int32, device=vals.device))
+    geometry = partition_geometry(m, t, s, nw)
     ranks = torch.empty((m, s), dtype=torch.int32, device=vals.device)
     counts = torch.empty((m, s + 1), dtype=torch.int32, device=vals.device)
-    if m == 0:
-        return ranks, counts
-    lib = _lib("splitter_partition", 8, 3)
+    lib = _lib("splitter_partition", 8, 7)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_splitter_partition(
             nw, *_build.word_ptrs(words + (vals,)),
             *_build.word_ptrs(sp_words + (sp_vals,)),
-            ranks.data_ptr(), counts.data_ptr(), m, t, s, tiles, stream,
+            ranks.data_ptr(), counts.data_ptr(), m, t, s, *geometry, stream,
         )
     _build.check(lib, err, "splitter_partition")
     LAUNCHES.add()
@@ -172,8 +241,9 @@ def splitter_partition_cuda(keys, vals, sp_keys, sp_vals):
 
 
 def splitter_ranks_cuda(keys, vals, sp_keys, sp_vals):
-    """Launch K3 on CUDA tensors: the rank of each splitter in each tile
-    by counting, so tiles and splitters may be in any order.
+    """Launch K3 on CUDA tensors: the rank of each splitter in each tile,
+    from a search of each element among the sorted splitters, so tiles
+    and splitters may be in any order.
 
     Args/Returns: as :func:`splitter_ranks`.
     Raises:
@@ -183,16 +253,19 @@ def splitter_ranks_cuda(keys, vals, sp_keys, sp_vals):
     words, sp_words = as_words(keys), as_words(sp_keys)
     nw, m, t, s = _check_cuda_args("splitter ranks", words, vals, sp_words,
                                    sp_vals)
-    ranks = torch.empty((m, s), dtype=torch.int32, device=vals.device)
-    if m == 0 or s == 0:
-        return ranks
-    lib = _lib("splitter_ranks", 7, 2)
+    if m == 0 or s == 0 or t == 0:
+        return torch.zeros((m, s), dtype=torch.int32, device=vals.device)
+    geometry = ranks_geometry(m, t)
+    # Parts of a split tile add their partial ranks into zeros.
+    ranks = (torch.zeros if geometry[0] > 1 else torch.empty)(
+        (m, s), dtype=torch.int32, device=vals.device)
+    lib = _lib("splitter_ranks", 7, 5)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_splitter_ranks(
             nw, *_build.word_ptrs(words + (vals,)),
             *_build.word_ptrs(sp_words + (sp_vals,)),
-            ranks.data_ptr(), m, t, s, stream,
+            ranks.data_ptr(), m, t, s, *geometry, stream,
         )
     _build.check(lib, err, "splitter_ranks")
     RANKS_LAUNCHES.add()

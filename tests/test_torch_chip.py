@@ -53,18 +53,26 @@ def test_tile_sort_kernel_equals_plain_version(cuda, t, s, nw):
 
 
 @pytest.mark.parametrize("nw", [1, 2])
-@pytest.mark.parametrize("t,num_splitters", [(4096, 63), (4096, 7), (64, 3)])
+@pytest.mark.parametrize("t,num_splitters", [
+    (4096, 63), (4096, 7), (64, 3), (2, 1), (32, 7), (32, 40), (16384, 63),
+    (4096, 1), (1024, 100), (8, 5),
+])
 def test_splitter_partition_kernel_equals_plain_version(cuda, t, num_splitters, nw):
+    """K2 on sorted tiles with sorted splitters drawn from them (repeats
+    among them), payloads moved by -1, 0 or 1; T <= 32 is one window."""
     from repro_torch.kernels import bitonic, ref, splitter
 
-    m = max(1, (1 << 20) // t)
+    m = max(1, (1 << 20) // t) + 1  # the last CTA's tiles partly masked
     sk, sv = bitonic.sort_tiles_kv(*tiles(cuda, m, t, nw))
     pick = torch.sort(torch.randint(0, t, (m, num_splitters), generator=cuda,
                                     device="cuda"), dim=1).values
     sp = tuple(torch.gather(w, 1, pick) for w in sk)
-    spv = torch.gather(sv, 1, pick)
+    spv = torch.gather(sv, 1, pick) + torch.randint(
+        -1, 2, pick.shape, generator=cuda, device="cuda", dtype=torch.int32)
+    before = splitter.LAUNCHES.count
     got = splitter.splitter_partition_cuda(sk, sv, sp, spv)
     torch.cuda.synchronize()
+    assert splitter.LAUNCHES.count == before + 1
     want = splitter.splitter_partition(sk, sv, sp, spv)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert all(torch.equal(a, b) for a, b in zip(got, ref.splitter_partition(sk, sv, sp, spv)))
@@ -85,23 +93,63 @@ def test_main_path_equals_stable_torch_sort(cuda, dtype):
     assert torch.equal(bucket_sort.sort(x), torch.sort(x, stable=True).values)
 
 
+def ranks_splitters(gen, words, vals, num_splitters, order):
+    """Splitters drawn from the tiles (payloads moved by -1, 0 or 1),
+    sorted or not; "repeated" repeats each of them, unsorted."""
+    m, t = vals.shape
+    if order == "repeated":
+        pick = torch.randint(0, t, (m, (num_splitters + 1) // 2), generator=gen,
+                             device="cuda").repeat_interleave(2, 1)[:, :num_splitters]
+        pick = torch.gather(pick, 1, torch.argsort(torch.rand(
+            pick.shape, generator=gen, device="cuda"), dim=1))
+        return (tuple(torch.gather(w, 1, pick) for w in words),
+                torch.gather(vals, 1, pick))
+    pick = torch.randint(0, t, (m, num_splitters), generator=gen, device="cuda")
+    if order == "sorted":
+        pick = torch.sort(pick, dim=1).values
+    sp = tuple(torch.gather(w, 1, pick) for w in words)
+    return sp, torch.gather(vals, 1, pick) + torch.randint(
+        -1, 2, pick.shape, generator=gen, device="cuda", dtype=torch.int32)
+
+
 @pytest.mark.parametrize("nw", [1, 2])
-@pytest.mark.parametrize("order", ["sorted", "unsorted"])
-@pytest.mark.parametrize("t,num_splitters", [(4096, 63), (64, 3), (256, 1100)])
+@pytest.mark.parametrize("order", ["sorted", "unsorted", "repeated"])
+@pytest.mark.parametrize("t,num_splitters", [
+    (4096, 63), (64, 3), (256, 1100), (4096, 1), (1024, 100), (2, 5),
+    (16384, 63),
+])
 def test_splitter_ranks_kernel_equals_plain_version(cuda, t, num_splitters, order, nw):
-    """K3 counts: right on unsorted tiles and unsorted splitters, and on
-    more splitters than it stages in shared memory at once (1024)."""
+    """K3 right on unsorted tiles and unsorted or repeated splitters, and
+    on more splitters than it stages in shared memory at once (1024)."""
     from repro_torch.kernels import bitonic, ref, splitter
 
     m = max(1, (1 << 18) // t)
     words, vals = tiles(cuda, m, t, nw)
-    pick = torch.randint(0, t, (m, num_splitters), generator=cuda, device="cuda")
     if order == "sorted":
         words, vals = bitonic.sort_tiles_kv(words, vals)
-        pick = torch.sort(pick, dim=1).values
-    sp = tuple(torch.gather(w, 1, pick) for w in words)
-    spv = torch.gather(vals, 1, pick) + torch.randint(
-        -1, 2, pick.shape, generator=cuda, device="cuda", dtype=torch.int32)
+    sp, spv = ranks_splitters(cuda, words, vals, num_splitters, order)
+    before = splitter.RANKS_LAUNCHES.count
+    got = splitter.splitter_ranks_cuda(words, vals, sp, spv)
+    torch.cuda.synchronize()
+    assert splitter.RANKS_LAUNCHES.count == before + 1
+    assert torch.equal(got, splitter.splitter_ranks(words, vals, sp, spv))
+    assert torch.equal(got, ref.splitter_ranks(words, vals, sp, spv))
+
+
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("order", ["sorted", "unsorted", "repeated"])
+@pytest.mark.parametrize("num_splitters", [1, 7])
+def test_splitter_ranks_kernel_splits_a_lone_tile(cuda, num_splitters, order, nw):
+    """One tile of 2^22 elements is cut across CTAs whose partial ranks
+    add up in the output."""
+    from repro_torch.kernels import ref, splitter
+
+    t = 1 << 22
+    assert splitter.ranks_geometry(1, t)[0] > 1
+    words, vals = tiles(cuda, 1, t, nw)
+    if order == "sorted":
+        words, vals = ref.sort_tiles_kv(words, vals)
+    sp, spv = ranks_splitters(cuda, words, vals, num_splitters, order)
     before = splitter.RANKS_LAUNCHES.count
     got = splitter.splitter_ranks_cuda(words, vals, sp, spv)
     torch.cuda.synchronize()

@@ -272,6 +272,67 @@ def test_topk_rows_per_cta():
     assert topk.rows_per_cta(100, 16384) == 1
 
 
+@pytest.mark.parametrize("m,t", [
+    (1, 1 << 22), (9728, 4096), (16384, 4096), (1, 4096), (3, 8192),
+    (100, 1 << 16), (527, 1 << 20), (528, 1 << 20), (1024, 256), (5, 64),
+    (7, 2), (1, 1), (2, 100), (1, (1 << 22) + 12),
+])
+def test_ranks_geometry_covers_every_element_once(m, t):
+    """K3's launch: a tile is split only when its tiles are too few CTAs
+    for the card; parts and threads cover each element exactly once, at
+    the alignment the kernel's int4 loads need."""
+    split, part_len, threads = splitter.ranks_geometry(m, t)
+    assert split >= 1 and (split == 1 or m < splitter._FILL_CTAS)
+    assert m * split < 2**31
+    assert part_len % 16 == 0
+    assert 32 <= threads <= 256 and threads & (threads - 1) == 0
+    # The kernel's ranges: part p, slab k, thread x ->
+    # [p * part_len + k * threads * 16 + 16 x, + 16) within the part.
+    parts = np.arange(split)
+    part_end = np.minimum(t, (parts + 1) * part_len)
+    assert (parts * part_len < t).all(), "every part holds an element"
+    slabs = -(-part_len // (threads * 16))
+    start = (parts[:, None, None] * part_len
+             + np.arange(slabs)[None, :, None] * threads * 16
+             + np.arange(threads)[None, None, :] * 16)
+    end = np.minimum(part_end[:, None, None], start + 16)
+    assert np.maximum(end - start, 0).sum() == t
+    nonempty = (end > start).ravel()
+    bounds = np.stack([start.ravel()[nonempty], end.ravel()[nonempty]], 1)
+    bounds = bounds[np.argsort(bounds[:, 0])]
+    assert bounds[0, 0] == 0 and bounds[-1, 1] == t
+    assert (bounds[1:, 0] == bounds[:-1, 1]).all(), "no gap, no overlap"
+    if m >= splitter._FILL_CTAS or t < 2 * 256 * 16:
+        assert split == 1
+
+
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("m,t,s", [
+    (16384, 4096, 63), (9728, 4096, 63), (3, 2, 1), (1000, 32, 7),
+    (5, 64, 3), (4096, 16384, 63), (1, 16384, 1100), (2, 100, 33),
+    (1, 64, 12288), (8, 8, 5),
+])
+def test_partition_geometry_fits_shared_memory(m, t, s, nw):
+    """K2's launch: tiles per CTA, warps per tile, window and coarse
+    index within the CTA's 256 threads and 227 KB of shared memory."""
+    tiles, warps, window, groups, smem = splitter.partition_geometry(m, t, s, nw)
+    assert 1 <= tiles <= min(4, m) and 1 <= warps <= 8
+    assert warps * 8 >= min(s, 64) and 32 * warps * tiles <= 256
+    assert window == min(32, t)
+    assert (groups - 1) * window < t <= groups * window, "windows cover the tile"
+    assert smem == tiles * ((8 + 4 * (nw == 2)) * groups + 4 * s)
+    assert smem <= 232_448
+    assert splitter.partition_block_rows(m) >= tiles
+
+
+def test_partition_geometry_refuses_more_than_shared_memory_holds():
+    splitter.partition_geometry(1, 16384, 56_000, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        splitter.partition_geometry(1, 16384, 58_000, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        splitter.partition_geometry(1, 1 << 23, 1, 1)
+
+
 def test_kernel_wrappers_take_cuda_tensors_only():
     w = torch.zeros((2, 64), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors only"):
@@ -354,7 +415,8 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 16
+    files += sorted((ROOT / "scripts").glob("*.py"))
+    assert len(files) >= 17
     assert ROOT / "src" / "repro_torch" / "core" / "partial_sort.py" in files
     assert ROOT / "src" / "repro_torch" / "kernels" / "topk.py" in files
     for path in files:
