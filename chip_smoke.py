@@ -11,14 +11,17 @@ K5 radix sort, K6 merge sort) and then
 
 1. holds each kernel bit for bit against its plain PyTorch version on
    the card, at the row widths, word counts, sample and splitter counts
-   of the main path (rows capped to 2^22 elements per check; K2 also at
-   T in {2, 32}, one window; K3 on sorted and on unsorted tiles, and on
-   one tile of 2^22, which it splits across CTAs; K4 at 16 to 1024
-   columns, one and two words, k in {1, 6, 8}; K5 and K6 also at T in
-   {2, 64, 4096, 8192, 16384}, one and two words, 0 or 64 samples,
-   radix_bits 1, 2, 4 and merge_run 64, 512, on duplicate keys with
-   arange payloads and on random keys and payloads), and at a main-path
-   shape, which is also timed;
+   of the main path (rows capped to 2^22 elements per check; K1 also at
+   every power-of-two T from 2 to 16384, one and two words, 0 or 64
+   samples, on permutation and on full-range payloads; K2 also at T in
+   {2, 32}, one window; K3 on sorted and on unsorted tiles, and on one
+   tile of 2^22, which it splits across CTAs; K4 at 16 to 1024 columns,
+   one and two words, k in {1, 6, 8}; K5 and K6 also at T in {2, 64,
+   4096, 8192, 16384}, one and two words, 0 or 64 samples, radix_bits
+   1, 2, 4 and merge_run 64, 512, on duplicate keys with arange payloads
+   and on random keys and payloads; K6 also at every power-of-two T,
+   merge_run 2, 64, 512 and 16384, and on duplicate keys with random
+   payloads), and at a main-path shape, which is also timed;
 2. drives the main path through the public entry points on seeded
    numpy data, fifteen cases: ``sort`` / ``argsort`` 2^26 int32,
    ``argsort`` 2^24 float32 with NaN / +-inf / -0.0, ``sort_kv`` 2^24
@@ -60,6 +63,7 @@ from __future__ import annotations
 import argparse
 import collections
 import functools
+import itertools
 import json
 import math
 import statistics
@@ -78,6 +82,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 CHECK_ELEMENTS = 1 << 22
+# Every power-of-two row width the row sorts take (2 to 16384): each puts
+# K1's and K6's in-thread, shuffle and shared-memory strides elsewhere.
+WIDTHS = [1 << k for k in range(1, 15)]
 
 
 def gpu_line() -> str:
@@ -220,6 +227,12 @@ def duplicate_tiles(m, t, nw, gen):
     return words, vals
 
 
+def full_range(m, t, gen):
+    """(m, T) int32 over the whole range, repeats allowed."""
+    return torch.randint(-(2**31), 2**31 - 1, (m, t), generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
 def random_rows(m, t, nw, gen):
     """(m, T) random key words and random payloads, repeats allowed."""
     words = tuple(
@@ -252,15 +265,21 @@ def check_kernels(launch_shapes, gen):
     key words, radix_bits or merge_run) of the main path's launches."""
     from repro_torch.kernels import bitonic, ref, splitter, topk
 
-    k1 = {(t, nw, s) for k, _, t, s, nw, _ in launch_shapes if k == "tile_sort"}
-    k1 |= {(t, nw, s) for t in (2, 64, 4096, 8192) for nw in (1, 2)
-           for s in (0, min(64, t))}
+    main_k1 = {(t, nw, s) for k, _, t, s, nw, _ in launch_shapes
+               if k == "tile_sort"}
+    k1 = main_k1 | {(t, nw, s) for t in WIDTHS for nw in (1, 2)
+                    for s in (0, min(64, t))}
     k2 = {(t, nw, s) for k, _, t, s, nw, _ in launch_shapes
           if k == "splitter_partition"}
     # Tiles no wider than K2's window of 32, which is then the whole tile.
     k2 |= {(t, nw, s) for t, s in ((2, 1), (32, 7)) for nw in (1, 2)}
-    for t, nw, s in sorted(k1):
-        words, vals = random_tiles(max(1, CHECK_ELEMENTS // t), t, nw, gen)
+    for (t, nw, s), payloads in itertools.product(
+            sorted(k1), ("permutation", "full_range")):
+        m = max(1, (CHECK_ELEMENTS if (t, nw, s) in main_k1
+                    else CHECK_ELEMENTS // 4) // t)
+        words, vals = random_tiles(m, t, nw, gen)
+        if payloads == "full_range":
+            vals = full_range(m, t, gen)
         if s:
             got = bitonic.sort_tiles_sample_kv(words, vals, num_samples=s)
         else:
@@ -272,7 +291,8 @@ def check_kernels(launch_shapes, gen):
             want += (tuple(bitonic.take_samples(w, s) for w in pw),
                      bitonic.take_samples(pv, s))
         err = max_abs_err(flat(got), flat(want))
-        print(f"K1 tile_sort T={t} nw={nw} samples={s}: max_abs_err={err}")
+        print(f"K1 tile_sort T={t} nw={nw} samples={s} {payloads} payloads: "
+              f"max_abs_err={err}")
         if err:
             raise AssertionError("K1 disagrees with its plain version")
     for t, nw, s in sorted(k2):
@@ -370,26 +390,40 @@ def row_sorter(kernel):
 def check_row_sorters(launch_shapes, gen):
     """K5 and K6 bit for bit against their plain versions, at every
     (T, key words, samples, knob) the main path launches them with and on
-    a grid: T in {2, 64, 4096, 8192, 16384}, one and two words, 0 or 64
-    samples, radix_bits 1, 2, 4, merge_run 64 and 512 (above T for the
-    narrow rows), on keys below 16 with arange payloads and on random
-    keys and payloads (both plain versions are defined for any payload)."""
+    a grid: at T in {2, 64, 4096, 8192, 16384}, one and two words, 0 or
+    64 samples, radix_bits 1, 2, 4 and merge_run 64, 512; K6 also at
+    every power-of-two T from 2 to 16384, one and two words, 0 or 64
+    samples by turns, merge_run 2, 64, 512 and 16384 (at least T: K6 is
+    then K1).  Data: keys below 16 with
+    arange payloads, random keys and payloads (both plain versions are
+    defined for any payload), and for K6 keys below 16 with random
+    payloads, which only a merge on the key words alone gets right."""
     from repro_torch.kernels import bitonic
 
-    grid = {(t, nw, s) for t in (2, 64, 4096, 8192, bitonic.MAX_TILE)
-            for nw in (1, 2) for s in (0, min(64, t))}
-    for kernel, knobs in (("radix_sort", (1, 2, 4)), ("merge_sort", (64, 512))):
+    first = [(t, nw, s) for t in (2, 64, 4096, 8192, bitonic.MAX_TILE)
+             for nw in (1, 2) for s in (0, min(64, t))]
+    grids = {
+        "radix_sort": [x + (knob,) for x in first for knob in (1, 2, 4)],
+        "merge_sort": sorted(
+            {x + (knob,) for x in first for knob in (64, 512)}
+            | {(t, nw, min(64, t) * (k % 2), knob)
+               for k, t in enumerate(WIDTHS) for nw in (1, 2)
+               for knob in (2, 64, 512, bitonic.MAX_TILE)}),
+    }
+    for kernel, grid in grids.items():
         wrap, wrap_sample, plain, knob_name = row_sorter(kernel)
         main = {(t, nw, s, knob) for k, _, t, s, nw, knob in launch_shapes
                 if k == kernel}
-        cases = sorted(main) + [(t, nw, s, knob) for t, nw, s in sorted(grid)
-                                for knob in knobs]
-        for t, nw, s, knob in cases:
+        datas = ("duplicates", "random") + (
+            ("duplicates_random_payloads",) if kernel == "merge_sort" else ())
+        for t, nw, s, knob in sorted(main) + grid:
             m = max(1, (CHECK_ELEMENTS if (t, nw, s, knob) in main
                         else CHECK_ELEMENTS // 4) // t)
-            for data in ("duplicates", "random"):
-                words, vals = (duplicate_tiles if data == "duplicates"
-                               else random_rows)(m, t, nw, gen)
+            for data in datas:
+                words, vals = (random_rows if data == "random"
+                               else duplicate_tiles)(m, t, nw, gen)
+                if data == "duplicates_random_payloads":
+                    vals = full_range(m, t, gen)
                 kw = {knob_name: knob}
                 got = (wrap_sample(words, vals, num_samples=s, **kw) if s
                        else wrap(words, vals, **kw))

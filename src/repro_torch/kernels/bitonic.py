@@ -2,7 +2,8 @@
 
 The plain PyTorch version (:func:`bitonic_network_rows`) mirrors the
 JAX package's ``kernels/bitonic.py`` network line for line; the CUDA
-kernel (``csrc/tile_sort.cu``) runs the same network on the card.
+kernel (``csrc/tile_sort.cu``) sorts the same rows on the card in
+registers, with the launch geometry of :func:`row_sort_geometry`.
 :func:`sort_tiles_kv` and :func:`sort_tiles_sample_kv` are the kernel's
 wrappers: they take CUDA tensors only, launch the kernel and count the
 launch; ``kernels/ops.py`` gives CPU tensors the plain version.
@@ -15,6 +16,7 @@ int32 and the last word of the comparison.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -23,9 +25,13 @@ from repro_torch.kernels import _build
 # Elements one CTA of the kernel should hold: rows of T < 2048 share a
 # CTA (direct levels sort rows as narrow as 2).
 _CTA_ELEMENTS = 2048
-# Widest row the kernel sorts: (nw + 1) int32 arrays of T in shared
-# memory, 192 KB at T = 16384 with two key words (227 KB per block).
+# Widest row the row sorts take: at T = 16384 with two key words K6's
+# shared copy of packed keys is 198 KB (227 KB per block).
 MAX_TILE = 16384
+# K1's and K6's elements a thread, in registers; twice as many in the
+# one CTA of a row of MAX_TILE, whose 512 threads are the kernels' most.
+_ITEMS = 16
+_MAX_THREADS = 512
 
 LAUNCHES = _build.LaunchCounter("tile_sort")
 
@@ -120,6 +126,39 @@ def effective_block_rows(m: int, t: int) -> int:
     return largest_pow2_divisor(m, max(_CTA_ELEMENTS // t, 1))
 
 
+class RowSortGeometry(NamedTuple):
+    """K1's and K6's launch: ``threads`` of ``items`` consecutive elements
+    each sort ``rows`` rows a CTA; K1 takes ``shared_bytes`` of dynamic
+    shared memory (its exchange buffer, none when a row fits one warp's
+    registers), K6 ``merge_shared_bytes`` (its padded merge copy)."""
+
+    threads: int
+    items: int
+    rows: int
+    shared_bytes: int
+    merge_shared_bytes: int
+
+
+def row_sort_geometry(m: int, t: int, nw: int) -> RowSortGeometry:
+    """K1's and K6's launch for m rows of T (a power of two in [2,
+    MAX_TILE]) and nw key words.
+
+    A CTA holds E = rows * T elements (``effective_block_rows``), 16 a
+    thread, or E / 512 when that is more (32 at E = MAX_TILE), or E when
+    that is less.  An element is an 8-byte packed key, plus its 4-byte
+    payload with two words.  K1 exchanges through shared memory only the
+    strides of 32 * items and more, so it takes E keys when T exceeds
+    what one warp holds; K6's copy has one slot of padding per ``items``.
+    """
+    rows = effective_block_rows(m, t)
+    e = rows * t
+    items = min(max(_ITEMS, e // _MAX_THREADS), e)
+    threads = e // items
+    key = 8 if nw == 1 else 12
+    shared = e * key if t > 32 * items else 0
+    return RowSortGeometry(threads, items, rows, shared, (e + e // items) * key)
+
+
 def _lib(source: str, extra_ints: int) -> ctypes.CDLL:
     lib = _build.library(source)
     fn = getattr(lib, f"repro_{source}")
@@ -133,14 +172,17 @@ def _lib(source: str, extra_ints: int) -> ctypes.CDLL:
 
 
 def launch_row_sort(source: str, counter: _build.LaunchCounter, words, vals,
-                    num_samples: int, *extra: int):
+                    num_samples: int, *extra: int, geometry=None):
     """Check the tensors and launch one of the row-sort kernels, K1
     (``tile_sort``), K5 (``radix_sort``) or K6 (``merge_sort``).
 
     They share one C interface, ``repro_<source>(nw, k0, k1, v, ok0, ok1,
-    ov, sk0, sk1, sv, m, T, rows_per_cta, num_samples, *extra, stream)``,
-    and one layout: (m, T) contiguous int32 rows, T a power of two in
-    [2, MAX_TILE], ``effective_block_rows`` rows per CTA.
+    ov, sk0, sk1, sv, m, T, rows_per_cta, num_samples, *extra,
+    *geometry(m, T, nw), stream)``, and one layout: (m, T) contiguous
+    int32 rows, T a power of two in [2, MAX_TILE],
+    ``effective_block_rows`` rows per CTA.  ``geometry`` (K1's and K6's
+    launch arguments from :func:`row_sort_geometry`) is called after the
+    tensors are checked.
 
     Returns:
         ([sorted words..., sorted vals], [sample words..., sample vals]
@@ -172,6 +214,8 @@ def launch_row_sort(source: str, counter: _build.LaunchCounter, words, vals,
     ] if num_samples else []
     if m == 0:
         return out, samp
+    if geometry is not None:
+        extra += tuple(geometry(m, t, nw))
     lib = _lib(source, len(extra))
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -182,6 +226,13 @@ def launch_row_sort(source: str, counter: _build.LaunchCounter, words, vals,
     _build.check(lib, err, source)
     counter.add()
     return out, samp
+
+
+def _k1_geometry(m: int, t: int, nw: int) -> tuple[int, int, int]:
+    """K1's launch arguments after ``num_samples``: threads, items, shared
+    bytes."""
+    g = row_sort_geometry(m, t, nw)
+    return g.threads, g.items, g.shared_bytes
 
 
 def sort_tiles_kv(keys, vals: torch.Tensor):
@@ -196,7 +247,8 @@ def sort_tiles_kv(keys, vals: torch.Tensor):
         ValueError: for tensors the kernel does not take.
         RuntimeError: when the launch fails.
     """
-    out, _ = launch_row_sort("tile_sort", LAUNCHES, as_words(keys), vals, 0)
+    out, _ = launch_row_sort("tile_sort", LAUNCHES, as_words(keys), vals, 0,
+                             geometry=_k1_geometry)
     return like_words(out[:-1], keys), out[-1]
 
 
@@ -211,7 +263,7 @@ def sort_tiles_sample_kv(keys, vals: torch.Tensor, *, num_samples: int):
     if num_samples < 1:
         raise ValueError(f"num_samples must be >= 1, got {num_samples}")
     out, samp = launch_row_sort("tile_sort", LAUNCHES, as_words(keys), vals,
-                                num_samples)
+                                num_samples, geometry=_k1_geometry)
     return (
         like_words(out[:-1], keys), out[-1],
         like_words(samp[:-1], keys), samp[-1],

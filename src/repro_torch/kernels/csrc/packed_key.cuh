@@ -1,6 +1,8 @@
 // The lexicographic order on (*words, payload) as one or two integer
-// compares, for the kernels that search sorted keys in shared memory: K2
-// (splitter_partition.cu) and K3 (splitter_ranks.cu).
+// compares, for the kernels that search sorted keys in shared memory, K2
+// (splitter_partition.cu) and K3 (splitter_ranks.cu), and for the
+// register-resident row sorts, K1 (tile_sort.cu) and K6 (merge_sort.cu),
+// which hold their elements as packed keys (bitonic_network.cuh).
 //
 // Key words are the port's biased int32 words (core/key_codec.py), so the
 // order is plain signed int32 order word by word.  Two signed words (a, b)

@@ -3,7 +3,8 @@
 The "merge" local-sort strategy.  :func:`merge_sort_rows` (with
 :func:`_merge_level`) is the plain PyTorch version, the JAX package's
 ``kernels/merge.py`` body line for line; the CUDA kernel
-(``csrc/merge_sort.cu``) sorts the same rows on the card.
+(``csrc/merge_sort.cu``) sorts the same rows on the card, in K1's
+registers and launch geometry (``bitonic.row_sort_geometry``).
 :func:`sort_tiles_kv` and :func:`sort_tiles_sample_kv` are the kernel's
 wrappers: they take CUDA tensors only, launch the kernel and count the
 launch.  :func:`hybrid_sort_rows` / :func:`hybrid_sort_sample_rows`
@@ -30,6 +31,7 @@ from repro_torch.kernels.bitonic import (
     launch_row_sort,
     lex_gt,
     like_words,
+    row_sort_geometry,
     take_samples,
 )
 
@@ -113,6 +115,13 @@ def merge_sort_rows(keys, vals: torch.Tensor, *, merge_run: int = 512):
     return like_words(tuple(parts[:-1]), keys), parts[-1]
 
 
+def _k6_geometry(m: int, t: int, nw: int) -> tuple[int, int, int]:
+    """K6's launch arguments after ``merge_run``: K1's threads and items,
+    the merge copy's shared bytes."""
+    g = row_sort_geometry(m, t, nw)
+    return g.threads, g.items, g.merge_shared_bytes
+
+
 def sort_tiles_kv(keys, vals: torch.Tensor, *, merge_run: int = 512):
     """Launch K6 on CUDA tensors: merge-path sort of each row of (m, T).
 
@@ -124,7 +133,7 @@ def sort_tiles_kv(keys, vals: torch.Tensor, *, merge_run: int = 512):
     """
     _check_merge_run(merge_run)
     out, _ = launch_row_sort("merge_sort", LAUNCHES, as_words(keys), vals, 0,
-                             merge_run)
+                             merge_run, geometry=_k6_geometry)
     return like_words(out[:-1], keys), out[-1]
 
 
@@ -139,7 +148,7 @@ def sort_tiles_sample_kv(keys, vals: torch.Tensor, *, num_samples: int,
         raise ValueError(f"num_samples must be >= 1, got {num_samples}")
     _check_merge_run(merge_run)
     out, samp = launch_row_sort("merge_sort", LAUNCHES, as_words(keys), vals,
-                                num_samples, merge_run)
+                                num_samples, merge_run, geometry=_k6_geometry)
     return (
         like_words(out[:-1], keys), out[-1],
         like_words(samp[:-1], keys), samp[-1],

@@ -31,12 +31,29 @@ def tiles(gen, m, t, nw):
     return words, vals
 
 
+# Every power-of-two row width, so that the in-thread, shuffle and
+# shared-memory strides of the register network meet at every boundary.
+WIDTHS = [1 << k for k in range(1, 15)]
+
+
+def full_range_payloads(gen, words):
+    """Payloads over the whole int32 range, repeats allowed: negative ones
+    exercise the packed key's bias."""
+    return torch.randint(-(2**31), 2**31 - 1, words[0].shape, generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
+@pytest.mark.parametrize("payloads", ["permutation", "full_range"])
 @pytest.mark.parametrize("nw", [1, 2])
-@pytest.mark.parametrize("t,s", [(2, 0), (64, 8), (4096, 64), (8192, 64), (16384, 0)])
-def test_tile_sort_kernel_equals_plain_version(cuda, t, s, nw):
+@pytest.mark.parametrize("t,s", sorted(
+    {(2, 0), (64, 8), (4096, 64), (8192, 64), (16384, 0)}
+    | {(t, s) for t in WIDTHS for s in (0, min(64, t))}))
+def test_tile_sort_kernel_equals_plain_version(cuda, t, s, nw, payloads):
     from repro_torch.kernels import bitonic
 
     words, vals = tiles(cuda, max(1, (1 << 20) // t), t, nw)
+    if payloads == "full_range":
+        vals = full_range_payloads(cuda, words)
     before = bitonic.LAUNCHES.count
     if s:
         got = bitonic.sort_tiles_sample_kv(words, vals, num_samples=s)
@@ -231,6 +248,28 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ops.sort_tiles(words[0].long(), vals)
 
 
+@pytest.mark.parametrize("kernel", ["tile_sort", "merge_sort"])
+@pytest.mark.parametrize("t", [2, 4096])
+def test_row_sort_kernels_take_rows_not_16_byte_aligned(cuda, t, kernel):
+    """Rows that start one row into their storage: at T = 2 the pointers
+    are 8 bytes off 16, and the kernels load and store them one element
+    at a time instead of with 16-byte accesses."""
+    from repro_torch.kernels import bitonic, merge
+
+    words, vals = tiles(cuda, 2049, t, 1)
+    words, vals = (words[0][1:],), vals[1:]
+    assert (vals.data_ptr() % 16 == 8) == (t == 2) and vals.is_contiguous()
+    if kernel == "tile_sort":
+        got = bitonic.sort_tiles_sample_kv(words, vals, num_samples=2)
+        want = bitonic.bitonic_network_rows(words, vals)
+    else:
+        got = merge.sort_tiles_sample_kv(words, vals, num_samples=2, merge_run=2)
+        want = merge.merge_sort_rows(words, vals, merge_run=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0][0], want[0][0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[3], want[1][:, t // 2 - 1::t // 2])
+
+
 def random_payload_tiles(gen, m, t, nw):
     """Random key words and random (not unique) payloads: K5 and K6 are
     defined for any payload, and so are their plain versions."""
@@ -268,15 +307,23 @@ def test_radix_sort_kernel_equals_plain_version(cuda, t, s, radix_bits, nw, data
         assert torch.equal(got[3], pv[:, t // s - 1::t // s])
 
 
-@pytest.mark.parametrize("data", ["duplicates", "random"])
+@pytest.mark.parametrize("data", ["duplicates", "random",
+                                  "duplicates_random_payloads"])
 @pytest.mark.parametrize("nw", [1, 2])
-@pytest.mark.parametrize("merge_run", [2, 64, 512])
-@pytest.mark.parametrize("t,s", [(2, 0), (16, 4), (64, 8), (4096, 64), (16384, 0)])
+@pytest.mark.parametrize("merge_run", [2, 64, 512, 32768])
+@pytest.mark.parametrize("t,s", sorted(
+    {(2, 0), (16, 4), (64, 8), (4096, 64), (16384, 0), (16384, 64)}
+    | {(t, 0 if k % 2 else min(16, t)) for k, t in enumerate(WIDTHS)}))
 def test_merge_sort_kernel_equals_plain_version(cuda, t, s, merge_run, nw, data):
+    """merge_run 32768 is at least every T: K6 is then K1.  Random
+    payloads under duplicate keys show that the merge compares the key
+    words only."""
     from repro_torch.kernels import merge
 
-    make = tiles if data == "duplicates" else random_payload_tiles
+    make = tiles if data.startswith("duplicates") else random_payload_tiles
     words, vals = make(cuda, max(1, (1 << 17) // t) + (t < 64), t, nw)
+    if data == "duplicates_random_payloads":
+        vals = full_range_payloads(cuda, words)
     before = merge.LAUNCHES.count
     if s:
         got = merge.sort_tiles_sample_kv(words, vals, num_samples=s,

@@ -37,7 +37,7 @@ from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels import splitter as jax_splitter  # noqa: E402
 from repro.kernels import topk as jax_topk  # noqa: E402
 from repro_torch.interop import words_from_numpy, words_to_numpy  # noqa: E402
-from repro_torch.kernels import _build, bitonic, ops, ref, splitter, topk  # noqa: E402
+from repro_torch.kernels import _build, bitonic, merge, ops, ref, splitter, topk  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -331,6 +331,28 @@ def test_partition_geometry_refuses_more_than_shared_memory_holds():
         splitter.partition_geometry(1, 16384, 58_000, 1)
     with pytest.raises(ValueError, match="shared memory"):
         splitter.partition_geometry(1, 1 << 23, 1, 1)
+
+
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("m", [1, 77, 1 << 17], ids=["one", "odd", "large"])
+@pytest.mark.parametrize("t", [1 << k for k in range(1, 15)])
+def test_row_sort_geometry_fits_the_cta(t, m, nw):
+    """K1's and K6's launch: threads of ``items`` registers hold the CTA's
+    rows exactly, within 1024 threads and 227 KB of shared memory; K1
+    exchanges through shared memory only rows wider than a warp holds."""
+    g = bitonic.row_sort_geometry(m, t, nw)
+    assert g.rows == bitonic.effective_block_rows(m, t) and m % g.rows == 0
+    assert g.threads * g.items == g.rows * t <= bitonic.MAX_TILE
+    assert g.items in (2, 4, 8, 16, 32) and g.threads & (g.threads - 1) == 0
+    assert 1 <= g.threads <= 1024
+    assert g.items == min(16, g.rows * t) or (t == bitonic.MAX_TILE and g.items == 32)
+    key = 8 if nw == 1 else 12
+    assert g.shared_bytes == (g.rows * t * key if t > 32 * g.items else 0)
+    assert g.merge_shared_bytes == (g.rows * t + g.threads) * key
+    assert max(g.shared_bytes, g.merge_shared_bytes) <= 232_448
+    assert bitonic._k1_geometry(m, t, nw) == (g.threads, g.items, g.shared_bytes)
+    assert merge._k6_geometry(m, t, nw) == (g.threads, g.items,
+                                            g.merge_shared_bytes)
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():

@@ -462,13 +462,15 @@ def test_strategies_run_on_the_cpu_only_when_asked(monkeypatch):
 
 def test_row_sorts_share_one_row_load_store_and_sample_epilogue():
     """K1, K5 and K6 load, store and sample their rows through
-    csrc/tile_rows.cuh, which the library hash covers."""
+    csrc/tile_rows.cuh, which the library hash covers: K5 from shared
+    memory, K1 and K6 from registers."""
     from repro_torch.kernels import _build
 
-    for name in ("tile_sort", "radix_sort", "merge_sort"):
+    for name, kind in (("tile_sort", "regs"), ("radix_sort", "rows<NW>"),
+                       ("merge_sort", "regs")):
         text = (_build._CSRC / f"{name}.cu").read_text()
         assert '#include "tile_rows.cuh"' in text
-        assert "repro::load_rows<NW>" in text and "repro::store_rows<NW>" in text
+        assert f"repro::load_{kind}" in text and f"repro::store_{kind}" in text
         assert "num_samples + 1" not in text and "% num_samples" not in text
     assert {"radix_sort", "merge_sort"} <= set(_build.SOURCES)
 
