@@ -15,13 +15,16 @@ K5 radix sort, K6 merge sort) and then
    every power-of-two T from 2 to 16384, one and two words, 0 or 64
    samples, on permutation and on full-range payloads; K2 also at T in
    {2, 32}, one window; K3 on sorted and on unsorted tiles, and on one
-   tile of 2^22, which it splits across CTAs; K4 at 16 to 1024 columns,
-   one and two words, k in {1, 6, 8}; K5 and K6 also at T in {2, 64,
-   4096, 8192, 16384}, one and two words, 0 or 64 samples, radix_bits
-   1, 2, 4 and merge_run 64, 512, on duplicate keys with arange payloads
-   and on random keys and payloads; K6 also at every power-of-two T,
-   merge_run 2, 64, 512 and 16384, and on duplicate keys with random
-   payloads), and at a main-path shape, which is also timed;
+   tile of 2^22, which it splits across CTAs; K4 at every power-of-two
+   width from 1 to 16384 columns, one and two words, k in {1, min(8, C),
+   C}, with the last CTA's rows partly masked; K5 and K6 also at T in
+   {2, 64, 4096, 8192, 16384}, one and two words, 0 or 64 samples,
+   radix_bits 1, 2, 4 and merge_run 64, 512, and at every power-of-two
+   T, 0 or 64 samples by turns, radix_bits 1, 2, 4 and merge_run 2, 64,
+   512 and 16384, on duplicate keys with arange payloads, on random keys
+   and payloads, and on duplicate keys with random payloads, which only a
+   stable sort on the key words alone gets right), and at a main-path
+   shape, which is also timed;
 2. drives the main path through the public entry points on seeded
    numpy data, fifteen cases: ``sort`` / ``argsort`` 2^26 int32,
    ``argsort`` 2^24 float32 with NaN / +-inf / -0.0, ``sort_kv`` 2^24
@@ -43,8 +46,9 @@ K5 radix sort, K6 merge sort) and then
 4. prints a JSON line of per-kernel numbers (a kernel's and its library
    call's ``ms``, one call between two events, the host's time to launch
    it included; ``device_ms`` and ``library_device_ms``, the device's time
-   per launch over 20 launches that it runs back to back), the card's name
-   and power limit, and last ``{"ok": true, "device": {...}}``.
+   per launch over 20 launches that it runs back to back; the radix_sort
+   row also K5's digit width, ``digit_bits``), the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line;
 it also exits non-zero when CUDA is not available.
@@ -331,8 +335,8 @@ def check_kernels(launch_shapes, gen):
             if err:
                 raise AssertionError("K3 disagrees with its plain version")
     check_k3_split(gen)
-    k4 = {(c, nw, k) for c in (16, 64, 128, 1024) for nw in (1, 2)
-          for k in (1, 6, 8)}
+    k4 = {(c, nw, k) for c in [1] + WIDTHS for nw in (1, 2)
+          for k in (1, min(8, c), c)}
     k4 |= {(t, nw, s) for k, _, t, s, nw, _ in launch_shapes if k == "topk"}
     for c, nw, k in sorted(k4):
         # A row count that leaves the last CTA's rows partly masked.
@@ -391,31 +395,33 @@ def check_row_sorters(launch_shapes, gen):
     """K5 and K6 bit for bit against their plain versions, at every
     (T, key words, samples, knob) the main path launches them with and on
     a grid: at T in {2, 64, 4096, 8192, 16384}, one and two words, 0 or
-    64 samples, radix_bits 1, 2, 4 and merge_run 64, 512; K6 also at
-    every power-of-two T from 2 to 16384, one and two words, 0 or 64
-    samples by turns, merge_run 2, 64, 512 and 16384 (at least T: K6 is
-    then K1).  Data: keys below 16 with
-    arange payloads, random keys and payloads (both plain versions are
-    defined for any payload), and for K6 keys below 16 with random
-    payloads, which only a merge on the key words alone gets right."""
+    64 samples, radix_bits 1, 2, 4 and merge_run 64, 512; and at every
+    power-of-two T from 2 to 16384, one and two words, 0 or 64 samples by
+    turns, radix_bits 1, 2, 4 (K5 ranks 8-bit digits whatever it says)
+    and merge_run 2, 64, 512 and 16384 (at least T: K6 is then K1).
+    Data: keys below 16 with arange payloads, random keys and payloads
+    (both plain versions are defined for any payload), and keys below 16
+    with random payloads, which only a stable sort (K5) or a merge (K6)
+    on the key words alone gets right."""
     from repro_torch.kernels import bitonic
 
     first = [(t, nw, s) for t in (2, 64, 4096, 8192, bitonic.MAX_TILE)
              for nw in (1, 2) for s in (0, min(64, t))]
+    knobs = {"radix_sort": ((1, 2, 4), (1, 2, 4)),
+             "merge_sort": ((64, 512), (2, 64, 512, bitonic.MAX_TILE))}
     grids = {
-        "radix_sort": [x + (knob,) for x in first for knob in (1, 2, 4)],
-        "merge_sort": sorted(
-            {x + (knob,) for x in first for knob in (64, 512)}
+        kernel: sorted(
+            {x + (knob,) for x in first for knob in first_knobs}
             | {(t, nw, min(64, t) * (k % 2), knob)
                for k, t in enumerate(WIDTHS) for nw in (1, 2)
-               for knob in (2, 64, 512, bitonic.MAX_TILE)}),
+               for knob in width_knobs})
+        for kernel, (first_knobs, width_knobs) in knobs.items()
     }
     for kernel, grid in grids.items():
         wrap, wrap_sample, plain, knob_name = row_sorter(kernel)
         main = {(t, nw, s, knob) for k, _, t, s, nw, knob in launch_shapes
                 if k == kernel}
-        datas = ("duplicates", "random") + (
-            ("duplicates_random_payloads",) if kernel == "merge_sort" else ())
+        datas = ("duplicates", "random", "duplicates_random_payloads")
         for t, nw, s, knob in sorted(main) + grid:
             m = max(1, (CHECK_ELEMENTS if (t, nw, s, knob) in main
                         else CHECK_ELEMENTS // 4) // t)
@@ -605,7 +611,7 @@ def kernel_row(kernel, measure, shape, source, replaces, gen, launches):
         raise AssertionError(f"{kernel} disagrees with its plain version")
     bytes_ms = nbytes / BYTES_PER_S * 1e3
     ops_ms = nops / INT32_OPS_PER_S * 1e3
-    return {
+    row = {
         "name": kernel, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "equal": err == 0, "max_abs_err": err,
@@ -616,6 +622,11 @@ def kernel_row(kernel, measure, shape, source, replaces, gen, launches):
         "library_ms": time_ms(library, 10) if library else None,
         "library_device_ms": per_launch_ms(library) if library else None,
     }
+    if kernel == "radix_sort":  # the kernel's own digit width at this shape
+        from repro_torch.kernels import radix
+
+        row["digit_bits"] = radix.radix_geometry(*shape[:3]).digit_bits
+    return row
 
 
 def profile_main_path(case):

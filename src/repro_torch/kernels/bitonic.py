@@ -28,8 +28,9 @@ _CTA_ELEMENTS = 2048
 # Widest row the row sorts take: at T = 16384 with two key words K6's
 # shared copy of packed keys is 198 KB (227 KB per block).
 MAX_TILE = 16384
-# K1's and K6's elements a thread, in registers; twice as many in the
-# one CTA of a row of MAX_TILE, whose 512 threads are the kernels' most.
+# Elements a thread of the register-resident kernels (K1, K4, K5, K6);
+# twice as many in the one CTA of a row of MAX_TILE, whose 512 threads
+# are the kernels' most.
 _ITEMS = 16
 _MAX_THREADS = 512
 
@@ -152,11 +153,20 @@ def row_sort_geometry(m: int, t: int, nw: int) -> RowSortGeometry:
     """
     rows = effective_block_rows(m, t)
     e = rows * t
-    items = min(max(_ITEMS, e // _MAX_THREADS), e)
-    threads = e // items
+    threads, items, shared = register_launch(e, t, nw)
     key = 8 if nw == 1 else 12
-    shared = e * key if t > 32 * items else 0
     return RowSortGeometry(threads, items, rows, shared, (e + e // items) * key)
+
+
+def register_launch(e: int, t: int, nw: int) -> tuple[int, int, int]:
+    """Threads, items a thread and shared bytes of K1's register network
+    (``bitonic_sort_regs``, also K4's) for a CTA of e elements in rows of
+    t: 16 items a thread, or e / 512 when that is more (32 at e =
+    MAX_TILE), or e when that is less; e packed keys of shared exchange
+    when a row is wider than one warp's registers hold, else none."""
+    items = min(max(_ITEMS, e // _MAX_THREADS), e)
+    key = 8 if nw == 1 else 12
+    return e // items, items, (e * key if t > 32 * items else 0)
 
 
 def _lib(source: str, extra_ints: int) -> ctypes.CDLL:
@@ -180,9 +190,10 @@ def launch_row_sort(source: str, counter: _build.LaunchCounter, words, vals,
     ov, sk0, sk1, sv, m, T, rows_per_cta, num_samples, *extra,
     *geometry(m, T, nw), stream)``, and one layout: (m, T) contiguous
     int32 rows, T a power of two in [2, MAX_TILE],
-    ``effective_block_rows`` rows per CTA.  ``geometry`` (K1's and K6's
-    launch arguments from :func:`row_sort_geometry`) is called after the
-    tensors are checked.
+    ``effective_block_rows`` rows per CTA.  ``geometry`` (the kernel's
+    launch arguments: :func:`row_sort_geometry`'s for K1 and K6,
+    ``radix.radix_geometry``'s for K5) is called after the tensors are
+    checked.
 
     Returns:
         ([sorted words..., sorted vals], [sample words..., sample vals]

@@ -1,13 +1,12 @@
 // The row load, row store and sample epilogue of the row-sort kernels, K1
 // (tile_sort.cu), K5 (radix_sort.cu) and K6 (merge_sort.cu).  A CTA sorts
-// E = rows_per_cta * T consecutive elements of (m, T) contiguous rows.
-//   - load_rows / store_rows: the rows in dynamic shared memory, one int32
-//     array per key word (s1 unused when NW == 1) plus one for the
-//     payload.  Used by K5 only.
-//   - load_regs / store_regs: the rows in registers, ITEMS consecutive
-//     elements a thread as packed keys (RegRows, bitonic_network.cuh),
-//     moved with 16-byte accesses where the pointers allow; the samples
-//     come from the registers that hold them.  Used by K1 and K6.
+// E = rows_per_cta * T consecutive elements of (m, T) contiguous rows, in
+// registers, ITEMS consecutive elements a thread as packed keys (RegRows,
+// bitonic_network.cuh), moved with 16-byte accesses where the pointers
+// allow (load_ints / store_ints); the samples come from the registers that
+// hold them.  K1 and K6 load with load_regs (K5 loads warp-striped, as
+// its ranking needs), and K1, K5 and K6 store with store_regs.  K4
+// (topk.cu) loads its words with load_ints.
 //
 // Replaces the row blocking and the fused sample output of the TPU kernel
 // src/repro/kernels/bitonic.py:tile_sort_call (_block_kernel), through
@@ -22,49 +21,6 @@
 #include "bitonic_network.cuh"
 
 namespace repro {
-
-// Copies the CTA's E elements, from element offset base, into shared
-// memory, coalesced.  The caller synchronises before reading them.
-template <int NW>
-__device__ __forceinline__ void load_rows(int* s0, int* s1, int* sv,
-                                          const int* __restrict__ k0,
-                                          const int* __restrict__ k1,
-                                          const int* __restrict__ v,
-                                          long long base, int E) {
-  for (int i = threadIdx.x; i < E; i += blockDim.x) {
-    s0[i] = k0[base + i];
-    if (NW == 2) s1[i] = k1[base + i];
-    sv[i] = v[base + i];
-  }
-}
-
-// Writes the CTA's sorted rows back from shared memory to element offset
-// base and, when num_samples > 0, sample j of each row, its element
-// (j + 1) * T / num_samples - 1, to the (m, num_samples) sample arrays.
-// Called after a __syncthreads() that follows the sort.
-template <int NW>
-__device__ __forceinline__ void store_rows(
-    const int* s0, const int* s1, const int* sv, int* __restrict__ ok0,
-    int* __restrict__ ok1, int* __restrict__ ov, int* __restrict__ sk0,
-    int* __restrict__ sk1, int* __restrict__ ssv, long long base, int E,
-    int T, int num_samples) {
-  for (int i = threadIdx.x; i < E; i += blockDim.x) {
-    ok0[base + i] = s0[i];
-    if (NW == 2) ok1[base + i] = s1[i];
-    ov[base + i] = sv[i];
-  }
-  if (num_samples) {
-    const int chunk = T / num_samples;
-    const int ns = E / T * num_samples;
-    const long long sbase = base / T * num_samples;
-    for (int q = threadIdx.x; q < ns; q += blockDim.x) {
-      const int src = (q / num_samples) * T + (q % num_samples + 1) * chunk - 1;
-      sk0[sbase + q] = s0[src];
-      if (NW == 2) sk1[sbase + q] = s1[src];
-      ssv[sbase + q] = sv[src];
-    }
-  }
-}
 
 // Reads N consecutive int32 from p: as int4 when N is a multiple of 4 and
 // `vec` says p is 16-byte aligned, else one by one.

@@ -3,8 +3,9 @@
 The "radix" local-sort strategy.  :func:`radix_sort_rows` (with
 :func:`digit_rank` and :func:`_hillis`) is the plain PyTorch version,
 the JAX package's ``kernels/radix.py`` body line for line; the CUDA
-kernel (``csrc/radix_sort.cu``) sorts the same rows on the card with a
-block-wide radix rank.  :func:`sort_tiles_kv` and
+kernel (``csrc/radix_sort.cu``) sorts the same rows on the card in
+registers, ranking 8-bit digits a warp at a time, with the launch
+geometry of :func:`radix_geometry`.  :func:`sort_tiles_kv` and
 :func:`sort_tiles_sample_kv` are the kernel's wrappers: they take CUDA
 tensors only, launch the kernel and count the launch.
 :func:`composite_sort_rows` / :func:`composite_sort_sample_rows` are the
@@ -14,8 +15,11 @@ path of the port runs them.
 Strategy contract (as in the JAX package): a STABLE sort keyed on the
 key words only; the int32 payload rides along.  Inside the pipeline that
 equals the bitonic order on (*words, payload), because equal keys always
-arrive in increasing-payload order.  Words are ``32 / radix_bits`` digit
-passes each, least significant word first.
+arrive in increasing-payload order.  A stable sort has one result
+whatever its digit width: in the plain version a word is ``32 /
+radix_bits`` digit passes, least significant word first, while the
+kernel takes its own width (``DIGIT_BITS``), so on the card
+``radix_bits`` is checked but sets no passes.
 
 Keys are one or two biased int32 word tensors (``core/key_codec``), most
 significant first, or a bare tensor for one word.  A digit comes from
@@ -25,13 +29,17 @@ the digit is masked after the shift (exact while shift + width <= 32).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitonic import (
     as_words,
+    effective_block_rows,
     launch_row_sort,
     like_words,
+    register_launch,
     take_samples,
 )
 
@@ -40,7 +48,51 @@ from repro_torch.kernels.bitonic import (
 _SEG = 8
 _BIAS = -(2**31)  # int32 0x80000000: biased word ^ _BIAS = canonical word
 
+# K5's digit width on the card: four passes a key word, each ranking a
+# warp's items against 256 shared counters a warp (csrc/radix_sort.cu).
+DIGIT_BITS = 8
+
 LAUNCHES = _build.LaunchCounter("radix_sort")
+
+
+class RadixGeometry(NamedTuple):
+    """K5's launch: ``threads`` of ``items`` elements each sort ``rows``
+    rows a CTA in passes of ``digit_bits``-wide digits, with
+    ``shared_bytes`` of dynamic shared memory."""
+
+    threads: int
+    items: int
+    rows: int
+    digit_bits: int
+    shared_bytes: int
+
+
+def radix_geometry(m: int, t: int, nw: int) -> RadixGeometry:
+    """K5's launch for m rows of T (a power of two in [2, MAX_TILE]) and
+    nw key words: K1's threads and items a thread
+    (``bitonic.register_launch``) over ``effective_block_rows`` rows.
+
+    Shared memory holds one exchange of the CTA's elements, at least 32
+    slots (its swizzle stays inside an aligned block of 32): an 8-byte
+    key, plus the 4-byte payload with two words and the 4-byte row index
+    when rows share the CTA; and for each warp 2^digit_bits counters and
+    one sum.  At T = MAX_TILE with two words that is 208 KB of the 227 KB
+    a block may take.
+    """
+    rows = effective_block_rows(m, t)
+    e = rows * t
+    threads, items, _ = register_launch(e, t, nw)
+    warps = -(-threads // 32)
+    entry = 8 + 4 * (nw == 2) + 4 * (rows > 1)
+    shared = max(e, 32) * entry + 4 * warps * ((1 << DIGIT_BITS) + 1)
+    return RadixGeometry(threads, items, rows, DIGIT_BITS, shared)
+
+
+def _k5_geometry(m: int, t: int, nw: int) -> tuple[int, int, int, int]:
+    """K5's launch arguments after ``num_samples``: threads, items, digit
+    bits, shared bytes."""
+    g = radix_geometry(m, t, nw)
+    return g.threads, g.items, g.digit_bits, g.shared_bytes
 
 
 def _digits(w: torch.Tensor, shift: int, bits: int) -> torch.Tensor:
@@ -190,7 +242,7 @@ def sort_tiles_kv(keys, vals: torch.Tensor, *, radix_bits: int = 4):
     if radix_bits not in (1, 2, 4):
         raise ValueError(f"radix_bits must be 1, 2 or 4, got {radix_bits}")
     out, _ = launch_row_sort("radix_sort", LAUNCHES, as_words(keys), vals, 0,
-                             radix_bits)
+                             geometry=_k5_geometry)
     return like_words(out[:-1], keys), out[-1]
 
 
@@ -207,7 +259,7 @@ def sort_tiles_sample_kv(keys, vals: torch.Tensor, *, num_samples: int,
     if radix_bits not in (1, 2, 4):
         raise ValueError(f"radix_bits must be 1, 2 or 4, got {radix_bits}")
     out, samp = launch_row_sort("radix_sort", LAUNCHES, as_words(keys), vals,
-                                num_samples, radix_bits)
+                                num_samples, geometry=_k5_geometry)
     return (
         like_words(out[:-1], keys), out[-1],
         like_words(samp[:-1], keys), samp[-1],

@@ -4,8 +4,9 @@
 ``kernels/topk.py`` body, a bitonic sort of each row on (*words, column
 index) (``bitonic.bitonic_network_rows``) and its first k columns.
 :func:`topk_desc_cuda` wraps the CUDA kernel (``csrc/topk.cu``), which
-runs the same network as K1 from the shared ``csrc/bitonic_network.cuh``
-and makes the column index itself.
+runs K1's register network from the shared ``csrc/bitonic_network.cuh``
+with the launch geometry of :func:`topk_geometry`, makes the column
+index itself and stores only the first k of each row.
 
 Keys are one or two biased int32 word tensors in the descending codec
 (``ops.topk`` encodes), so the k smallest words are the k highest
@@ -15,6 +16,7 @@ scores, ties toward the smaller column.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +27,7 @@ from repro_torch.kernels.bitonic import (
     as_words,
     bitonic_network_rows,
     like_words,
+    register_launch,
 )
 
 LAUNCHES = _build.LaunchCounter("topk")
@@ -54,14 +57,33 @@ def rows_per_cta(r: int, c: int) -> int:
     return rows
 
 
+class TopkGeometry(NamedTuple):
+    """K4's launch: ``threads`` of ``items`` consecutive elements each
+    sort ``rows`` rows a CTA, with ``shared_bytes`` of dynamic shared
+    memory (K1's exchange, none when a row fits one warp's registers)."""
+
+    threads: int
+    items: int
+    rows: int
+    shared_bytes: int
+
+
+def topk_geometry(r: int, c: int, nw: int) -> TopkGeometry:
+    """K4's launch for r rows of C (a power of two in [1, MAX_TILE]) and
+    nw key words: :func:`rows_per_cta` rows a CTA, laid out as K1's
+    (``bitonic.register_launch``)."""
+    rows = rows_per_cta(r, c)
+    threads, items, shared = register_launch(rows * c, c, nw)
+    return TopkGeometry(threads, items, rows, shared)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("topk")
     fn = lib.repro_topk
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int] + [p] * 5 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
-        ]
+        fn.argtypes = [ctypes.c_int] + [p] * 5 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 6 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -101,8 +123,8 @@ def topk_desc_cuda(keys, k: int):
            for _ in range(nw + 1)]
     if r == 0:
         return like_words(tuple(out[:-1]), keys), out[-1]
-    rows = rows_per_cta(r, c)
-    if -(-r // rows) >= 2**31:
+    g = topk_geometry(r, c, nw)
+    if -(-r // g.rows) >= 2**31:
         raise ValueError(f"top-k takes fewer than 2^31 CTAs of rows, got {r} rows")
     lib = _lib()
     with torch.cuda.device(dev):
@@ -110,7 +132,8 @@ def topk_desc_cuda(keys, k: int):
         second = (lambda ts: ts[1].data_ptr() if nw == 2 else None)
         err = lib.repro_topk(
             nw, words[0].data_ptr(), second(words), out[0].data_ptr(),
-            second(out), out[-1].data_ptr(), r, c, rows, k, stream,
+            second(out), out[-1].data_ptr(), r, c, g.rows, k, g.threads,
+            g.items, g.shared_bytes, stream,
         )
     _build.check(lib, err, "topk")
     LAUNCHES.add()

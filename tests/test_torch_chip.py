@@ -176,8 +176,12 @@ def test_splitter_ranks_kernel_splits_a_lone_tile(cuda, num_splitters, order, nw
 
 
 @pytest.mark.parametrize("nw", [1, 2])
-@pytest.mark.parametrize("c,k", [(1, 1), (16, 6), (128, 8), (1024, 1), (16384, 50)])
+@pytest.mark.parametrize("c,k", sorted(
+    {(1, 1), (16, 6), (128, 8), (1024, 1), (16384, 50)}
+    | {(c, k) for c in [1] + WIDTHS for k in (1, min(8, c), c)}))
 def test_topk_kernel_equals_plain_version(cuda, c, k, nw):
+    """Every power-of-two row width, so that a row lies in one thread, in
+    one warp's registers or across warps; k of 1, 8 and the whole row."""
     from repro_torch.kernels import ref, topk
 
     rows = max(3, (1 << 18) // c) + 1  # not a multiple of the rows per CTA
@@ -282,16 +286,24 @@ def random_payload_tiles(gen, m, t, nw):
     return words, vals
 
 
-@pytest.mark.parametrize("data", ["duplicates", "random"])
+@pytest.mark.parametrize("data", ["duplicates", "random",
+                                  "duplicates_random_payloads"])
 @pytest.mark.parametrize("nw", [1, 2])
 @pytest.mark.parametrize("radix_bits", [1, 2, 4])
-@pytest.mark.parametrize("t,s", [(2, 0), (16, 4), (64, 8), (4096, 64), (16384, 0)])
+@pytest.mark.parametrize("t,s", sorted(
+    {(2, 0), (16, 4), (64, 8), (4096, 64), (16384, 0)}
+    | {(t, 0 if k % 2 else min(16, t)) for k, t in enumerate(WIDTHS)}))
 def test_radix_sort_kernel_equals_plain_version(cuda, t, s, radix_bits, nw, data):
+    """The kernel ranks 8-bit digits whatever radix_bits says; a stable
+    sort has one result.  Random payloads under duplicate keys show that
+    it is stable: it compares the key words only."""
     from repro_torch.kernels import radix
 
-    make = tiles if data == "duplicates" else random_payload_tiles
+    make = tiles if data.startswith("duplicates") else random_payload_tiles
     # Odd row counts for narrow rows: fewer rows share a CTA.
     words, vals = make(cuda, max(1, (1 << 17) // t) + (t < 64), t, nw)
+    if data == "duplicates_random_payloads":
+        vals = full_range_payloads(cuda, words)
     before = radix.LAUNCHES.count
     if s:
         got = radix.sort_tiles_sample_kv(words, vals, num_samples=s,

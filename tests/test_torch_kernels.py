@@ -37,7 +37,7 @@ from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels import splitter as jax_splitter  # noqa: E402
 from repro.kernels import topk as jax_topk  # noqa: E402
 from repro_torch.interop import words_from_numpy, words_to_numpy  # noqa: E402
-from repro_torch.kernels import _build, bitonic, merge, ops, ref, splitter, topk  # noqa: E402
+from repro_torch.kernels import _build, bitonic, merge, ops, radix, ref, splitter, topk  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -353,6 +353,58 @@ def test_row_sort_geometry_fits_the_cta(t, m, nw):
     assert bitonic._k1_geometry(m, t, nw) == (g.threads, g.items, g.shared_bytes)
     assert merge._k6_geometry(m, t, nw) == (g.threads, g.items,
                                             g.merge_shared_bytes)
+
+
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("m", [1, 77, 1 << 17], ids=["one", "odd", "large"])
+@pytest.mark.parametrize("t", [1 << k for k in range(1, 15)])
+def test_radix_geometry_fits_the_cta(t, m, nw):
+    """K5's launch: K1's threads and items hold the CTA's rows exactly;
+    the digit width divides a key word, so the passes are whole; the
+    exchange, counters and sums fit 227 KB of shared memory; rows share
+    a CTA only at the instances the kernel has (at most 16 items)."""
+    g = radix.radix_geometry(m, t, nw)
+    assert g.rows == bitonic.effective_block_rows(m, t) and m % g.rows == 0
+    assert g.threads * g.items == g.rows * t
+    assert (g.threads, g.items) == bitonic.register_launch(g.rows * t, t, nw)[:2]
+    assert g.items in (2, 4, 8, 16, 32) and g.threads & (g.threads - 1) == 0
+    assert 1 <= g.threads <= 512
+    assert 32 % g.digit_bits == 0
+    key_passes = nw * 32 // g.digit_bits
+    assert key_passes * g.digit_bits == nw * 32
+    row_bits = (g.rows - 1).bit_length()
+    row_passes = -(-row_bits // g.digit_bits)
+    assert row_passes * g.digit_bits >= row_bits and row_passes <= 2
+    if g.rows > 1:
+        assert g.rows * t <= 2048 and g.items <= 16
+    warps = -(-g.threads // 32)
+    entry = 8 + 4 * (nw == 2) + 4 * (g.rows > 1)
+    assert g.shared_bytes == (max(g.rows * t, 32) * entry
+                              + 4 * warps * (2**g.digit_bits + 1))
+    assert g.shared_bytes <= 232_448
+    assert radix._k5_geometry(m, t, nw) == (g.threads, g.items, g.digit_bits,
+                                            g.shared_bytes)
+
+
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("r", [1, 3, 65537], ids=["one", "three", "router"])
+@pytest.mark.parametrize("c", [1 << k for k in range(15)])
+def test_topk_geometry_fits_the_cta(c, r, nw):
+    """K4's launch: K1's register layout over ``rows_per_cta`` rows;
+    threads of ``items`` registers hold the CTA's rows exactly, the CTAs
+    cover every row (the last one's extra rows masked), and only rows
+    wider than one warp's registers take a shared exchange."""
+    g = topk.topk_geometry(r, c, nw)
+    assert g.rows == topk.rows_per_cta(r, c)
+    assert g.threads * g.items == g.rows * c <= max(2048, c)
+    assert g.items in (1, 2, 4, 8, 16, 32) and g.threads & (g.threads - 1) == 0
+    assert 1 <= g.threads <= 512
+    ctas = -(-r // g.rows)
+    assert (ctas - 1) * g.rows < r <= ctas * g.rows
+    assert g.rows == 1 or g.rows // 2 < r, "no CTA is all masked rows"
+    key = 8 if nw == 1 else 12
+    assert g.shared_bytes == (g.rows * c * key if c > 32 * g.items else 0)
+    assert g.shared_bytes <= 232_448
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():

@@ -461,17 +461,21 @@ def test_strategies_run_on_the_cpu_only_when_asked(monkeypatch):
 
 
 def test_row_sorts_share_one_row_load_store_and_sample_epilogue():
-    """K1, K5 and K6 load, store and sample their rows through
-    csrc/tile_rows.cuh, which the library hash covers: K5 from shared
-    memory, K1 and K6 from registers."""
+    """K1, K5 and K6 store and sample their rows from registers through
+    csrc/tile_rows.cuh, which the library hash covers; K1 and K6 load
+    through it too, K5 warp-striped for its ranking.  tile_rows.cuh has
+    no shared-memory row load or store."""
     from repro_torch.kernels import _build
 
-    for name, kind in (("tile_sort", "regs"), ("radix_sort", "rows<NW>"),
-                       ("merge_sort", "regs")):
+    for name, loads in (("tile_sort", True), ("radix_sort", False),
+                        ("merge_sort", True)):
         text = (_build._CSRC / f"{name}.cu").read_text()
         assert '#include "tile_rows.cuh"' in text
-        assert f"repro::load_{kind}" in text and f"repro::store_{kind}" in text
+        assert "repro::store_regs" in text
+        assert ("repro::load_regs" in text) == loads
         assert "num_samples + 1" not in text and "% num_samples" not in text
+    header = (_build._CSRC / "tile_rows.cuh").read_text()
+    assert "load_rows" not in header and "store_rows" not in header
     assert {"radix_sort", "merge_sort"} <= set(_build.SOURCES)
 
 
