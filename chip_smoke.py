@@ -43,12 +43,35 @@ K5 radix sort, K6 merge sort) and then
 3. times each entry point (median of CUDA-event-timed runs) beside
    ``torch.sort`` or ``torch.topk``, with the peak device memory, and
    profiles the 2^26 sort (bitonic and radix) and the batched top-k;
-4. prints a JSON line of per-kernel numbers (a kernel's and its library
+4. drives the paths of guarded execution, the segmented sort and the
+   paper's baselines, each a JSON line:
+   - segmented: ``segment_sort`` / ``segment_argsort`` of CSR column
+     indices (65,536 rows of 0 to 512 entries, empty and one-entry rows
+     included) and of 64 segments of 2^16 to 2^18 keys, against one
+     stable ``torch.sort`` of (segment, key), timed, with the peak;
+   - checked: the 2^26 int32 sort with ``check`` "bounds" and "full",
+     equal to and timed beside ``check="off"``, and the serving
+     ``topk_batched`` with ``check="full"``;
+   - faults: a 2^20 sort under an injected ``kernel.launch`` fault,
+     once (one logged retry, the correct result) and twice (a
+     ``SortRuntimeError`` naming the node and the kernel), and a plan
+     whose capacity is shrunk below the fills under ``check="bounds"``
+     (a ``SortRuntimeError``), with no library sort called;
+   - the paper's comparison: 2^26 int32 keys under seven distributions,
+     the deterministic sort (time, top round's largest bucket fill
+     against its capacity), the randomized sample sort (capacity factor
+     4, four attempts and one), ``merge_sort`` at 2^24 and stable
+     ``torch.sort``, then each one's spread of time over the
+     distributions;
+   every run of these paths has its kernel launches counted, and they
+   must be those its plan calls for;
+5. prints a JSON line of per-kernel numbers (a kernel's and its library
    call's ``ms``, one call between two events, the host's time to launch
    it included; ``device_ms`` and ``library_device_ms``, the device's time
    per launch over 20 launches that it runs back to back; the radix_sort
-   row also K5's digit width, ``digit_bits``), the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+   row also K5's digit width, ``digit_bits``; ``launches`` over every
+   counted run), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line;
 it also exits non-zero when CUDA is not available.
@@ -66,6 +89,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import dataclasses
 import functools
 import itertools
 import json
@@ -74,6 +99,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -932,6 +958,348 @@ def main_path_cases(rng):
     ]
 
 
+def plan_launches(plan) -> dict:
+    """Launches per kernel of a SortPlan's walk."""
+    return collections.Counter(k for k, *_ in kernel_launches(plan.root, []))
+
+
+def counted(fn, totals):
+    """Run fn() with the launch counts set to 0 just before it and read
+    just after; add them to ``totals``.  Returns (result, counts)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for k, c in counts.items():
+        totals[k] += c
+    return out, counts
+
+
+def expect_launches(name, counts, want):
+    got = {k: c for k, c in counts.items() if c}
+    want = {k: c for k, c in want.items() if c}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, plan {want}")
+
+
+@contextlib.contextmanager
+def library_sorts(calls):
+    """Count every call of torch's sorts and top-k while the block runs."""
+    patched = [(owner, name, getattr(owner, name))
+               for owner in (torch, torch.Tensor)
+               for name in ("sort", "argsort", "topk", "msort")
+               if hasattr(owner, name)]
+
+    def wrap(fn, name):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    for owner, name, fn in patched:
+        setattr(owner, name, wrap(fn, name))
+    try:
+        yield calls
+    finally:
+        for owner, name, fn in patched:
+            setattr(owner, name, fn)
+
+
+def timed_with_peak(fn, reps=3):
+    """(median ms, peak device bytes above what was held before)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = time_ms(fn, reps)
+    return ms, torch.cuda.max_memory_allocated() - base
+
+
+def segmented_phase(rng, totals):
+    """segment_sort / segment_argsort against one stable torch.sort of the
+    (segment, key) composite, which sorts each segment stably."""
+    from repro_torch.core import DEFAULT_CONFIG, bucket_sort, build_plan
+
+    csr = rng.integers(0, 513, 65536)
+    csr[:4] = (0, 1, 0, 512)  # empty, one-entry and full rows for sure
+    cases = (
+        ("CSR column indices: 65536 rows of 0-512", csr,
+         lambda n: rng.integers(0, 1 << 20, n, dtype=np.int32)),
+        ("64 segments of 2^16-2^18 keys", rng.integers(1 << 16, (1 << 18) + 1, 64),
+         lambda n: rng.integers(-(2**31), 2**31, n, dtype=np.int32)),
+    )
+    for name, lens, keys in cases:
+        off = np.concatenate([[0], np.cumsum(lens)])
+        n = int(off[-1])
+        x = torch.from_numpy(keys(n)).cuda()
+        seg = torch.repeat_interleave(torch.arange(len(lens), device="cuda"),
+                                      torch.from_numpy(lens).cuda())
+
+        def library():
+            return torch.sort((seg << 32) | (x.long() + 2**31), stable=True)
+
+        want = library().indices
+        plan = build_plan(int(lens.max()), torch.int32, DEFAULT_CONFIG,
+                          rows=len(lens))
+        t0 = time.perf_counter()
+        bucket_sort._segment_layout(n, off)  # the host's share of a call
+        layout_ms = (time.perf_counter() - t0) * 1e3
+        perm, counts = counted(lambda: bucket_sort.segment_argsort(x, off), totals)
+        expect_launches(f"segment_argsort {name}", counts, plan_launches(plan))
+        out, counts = counted(lambda: bucket_sort.segment_sort(x, off), totals)
+        expect_launches(f"segment_sort {name}", counts, plan_launches(plan))
+        if not (torch.equal(perm.long(), want) and torch.equal(out, x[want])):
+            raise AssertionError(f"segmented {name}: differs from torch.sort")
+        del perm, out, want
+        ms, peak = timed_with_peak(lambda: bucket_sort.segment_sort(x, off))
+        arg_ms, arg_peak = timed_with_peak(
+            lambda: bucket_sort.segment_argsort(x, off))
+        print(json.dumps({
+            "segmented": name, "n": n, "segments": len(lens),
+            "longest": int(lens.max()), "empty": int((lens == 0).sum()),
+            "plan_levels": plan.num_levels, "equal": True, "launches": counts,
+            "ms": ms, "mkeys_per_s": n / ms / 1e3,
+            "peak_bytes_above_input": peak,
+            "argsort_ms": arg_ms, "argsort_peak_bytes_above_input": arg_peak,
+            "library_ms": time_ms(library, 3), "host_layout_ms": layout_ms,
+        }))
+
+
+def checked_phase(x32, logits, totals):
+    """The 2^26 int32 sort with check "bounds" and "full" against "off",
+    and the serving top-k with check "full"."""
+    from repro_torch.core import (
+        DEFAULT_CONFIG,
+        SortConfig,
+        bucket_sort,
+        build_plan,
+        build_topk_plan,
+        guard,
+        partial_sort,
+    )
+
+    guard.clear_degradation_log()
+    x = x32.cuda()
+    base = bucket_sort.sort(x)
+    if not torch.equal(base, torch.sort(x, stable=True).values):
+        raise AssertionError("checked phase: sort differs from torch.sort")
+    off_ms = time_ms(lambda: bucket_sort.sort(x), 3)
+    plan = build_plan(x.shape[0], x.dtype, DEFAULT_CONFIG)
+    for check in ("bounds", "full"):
+        cfg = SortConfig(check=check)
+        out, counts = counted(lambda: bucket_sort.sort(x, cfg), totals)
+        expect_launches(f"sort check={check}", counts, plan_launches(plan))
+        if not torch.equal(out, base):
+            raise AssertionError(f"sort with check={check} differs from off")
+        del out
+        ms, peak = timed_with_peak(lambda: bucket_sort.sort(x, cfg))
+        print(json.dumps({
+            "checked": "sort int32 2^26", "check": check, "equal": True,
+            "ms": ms, "off_ms": off_ms, "check_ms": ms - off_ms,
+            "peak_bytes_above_input": peak}))
+    del x, base
+    y = logits.cuda()
+    cfg = SortConfig(check="full")
+    base = partial_sort.topk_batched(y, 50)
+    out, counts = counted(lambda: partial_sort.topk_batched(y, 50, cfg), totals)
+    tplan = build_topk_plan(y.shape[1], 50, y.dtype, cfg, rows=y.shape[0])
+    expect_launches("topk_batched check=full", counts,
+                    collections.Counter(k for k, *_ in topk_launches(tplan)))
+    if not (torch.equal(out[0], base[0]) and torch.equal(out[1], base[1])):
+        raise AssertionError("topk_batched with check=full differs from off")
+    print(json.dumps({
+        "checked": "topk_batched float32 (256, 151936) k=50", "check": "full",
+        "equal": True, "ms": time_ms(lambda: partial_sort.topk_batched(y, 50, cfg), 5),
+        "off_ms": time_ms(lambda: partial_sort.topk_batched(y, 50), 5)}))
+    if guard.degradation_log():
+        raise AssertionError(f"checked runs degraded: {guard.degradation_log()}")
+
+
+def doctored_plan(n):
+    """A plan for n int32 keys whose top capacity is shrunk to 128, below
+    the true bucket fills, with a direct child on the shrunk rows (at
+    n = 2^19 the sound plan's direct child is 16,384 wide, the widest
+    row sort)."""
+    from repro_torch.core import SortConfig, build_plan
+
+    plan = build_plan(n, torch.int32, SortConfig(direct_max=1 << 14))
+    root = plan.root
+    if root.kind != "bucket" or root.bucket_plan.kind != "direct":
+        raise AssertionError(f"unexpected plan shape: {plan.describe()}")
+    child = dataclasses.replace(root.bucket_plan, length=128, lp=128)
+    return dataclasses.replace(
+        plan, root=dataclasses.replace(root, cap=128, bucket_plan=child))
+
+
+def faults_phase(totals):
+    """Injected kernel.launch faults on the card: one is retried with the
+    same plan, two raise; a shrunk capacity raises under check="bounds";
+    no library sort runs."""
+    from repro_torch.core import DEFAULT_CONFIG, bucket_sort, build_plan, faults, guard
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randint(-(2**31), 2**31 - 1, (1 << 20,), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    want = torch.sort(x, stable=True).values
+    plan = build_plan(x.shape[0], x.dtype, DEFAULT_CONFIG)
+    guard.clear_degradation_log()
+    faults.reset()
+    raised, doctored = None, None
+    with library_sorts([]) as calls, warnings.catch_warnings():
+        warnings.simplefilter("ignore", guard.DegradationWarning)
+        with faults.inject("kernel.launch", on_hit=1, count=1):
+            out, counts = counted(lambda: bucket_sort.sort(x), totals)
+        retried = [ev.action for ev in guard.degradation_log()]
+        guard.clear_degradation_log()
+        with faults.inject("kernel.launch", on_hit=1, count=2):
+            try:
+                bucket_sort.sort(x)
+            except guard.SortRuntimeError as e:
+                raised = e
+        raised_log = [ev.action for ev in guard.degradation_log()]
+        try:
+            bucket_sort.sort_planned(x[: 1 << 19], doctored_plan(1 << 19),
+                                     check="bounds")
+        except guard.SortRuntimeError as e:
+            doctored = e
+    faults.reset()
+    guard.clear_degradation_log()
+    # The fault fires before the first launch, so the retry's launches
+    # are the plan's: the same plan ran once more.
+    expect_launches("sort under one fault", counts, plan_launches(plan))
+    line = {
+        "faults": "sort int32 2^20, kernel.launch on hit 1",
+        "one_fault": {"equal": torch.equal(out, want), "log": retried},
+        "two_faults": None if raised is None else {
+            "site": raised.site, "invariant": raised.invariant,
+            "cause": type(raised.__cause__).__name__,
+            "root_cause": type(raised.__cause__.__cause__).__name__,
+            "log": raised_log},
+        "cap_below_fills": None if doctored is None else {
+            "site": doctored.site, "invariant": doctored.invariant,
+            "detail": doctored.detail},
+        "library_sorts": len(calls),
+    }
+    print(json.dumps(line))
+    if not line["one_fault"]["equal"] or retried != ["retry"]:
+        raise AssertionError("one fault: no retry of the same plan, or wrong result")
+    if raised is None or not raised.site.endswith(":tile_sort") or (
+            "/top:bucket(" not in raised.site) or raised_log != ["retry"] or (
+            line["two_faults"]["root_cause"] != "FaultInjected"):
+        raise AssertionError("two faults: no SortRuntimeError naming node and kernel")
+    if doctored is None or doctored.invariant != "bucket_fill <= cap":
+        raise AssertionError("a capacity below the fills was not reported")
+    if calls:
+        raise AssertionError(f"a library sort ran in the chain: {calls}")
+
+
+def make_distribution(name: str, n: int, rng) -> np.ndarray:
+    """The input distributions of the paper's comparison, those of
+    Leischner et al. and a bucket killer: a copy of the benchmarks'
+    generators (benchmarks/common.py), kept here so the script stands
+    alone."""
+    if name == "uniform":
+        return rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)
+    if name == "gaussian":
+        return (rng.normal(0, 2**29, n)).astype(np.int32)
+    if name == "zipf":
+        return (rng.zipf(1.3, n) % (2**31 - 1)).astype(np.int32)
+    if name == "sorted":
+        return np.sort(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32))
+    if name == "reverse":
+        return np.sort(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32))[::-1].copy()
+    if name == "all-equal":
+        return np.full(n, 123456789, np.int32)
+    if name == "bucket-killer":
+        return rng.choice(np.array([3, 7, 11], np.int32), n)
+    raise KeyError(name)
+
+
+DISTRIBUTIONS = ("uniform", "gaussian", "zipf", "sorted", "reverse",
+                 "all-equal", "bucket-killer")
+
+
+def comparison_phase(rng, totals):
+    """The paper's comparison on the card: the deterministic sort against
+    the randomized sample sort, merge sort and torch.sort, 2^26 int32 keys
+    under each distribution.  Measurements only."""
+    from repro_torch.core import DEFAULT_CONFIG, baselines, bucket_sort, build_plan, guard
+    from repro_torch.core.sort_config import round_up
+
+    n, n_merge = 1 << 26, 1 << 24
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    plan = build_plan(n, torch.int32, DEFAULT_CONFIG)
+    s, lp = DEFAULT_CONFIG.s, round_up(n, DEFAULT_CONFIG.tile)
+    times = collections.defaultdict(dict)
+    for name in DISTRIBUTIONS:
+        x = torch.from_numpy(make_distribution(name, n, rng)).cuda()
+        want = torch.sort(x, stable=True)
+        # Deterministic: the top round's fills against the static capacity.
+        (srt, perm, stats), counts = counted(
+            lambda: bucket_sort.sort_with_stats(x), totals)
+        expect_launches(f"sort_with_stats {name}", counts, plan_launches(plan))
+        if not (torch.equal(srt, want.values) and torch.equal(perm.long(), want.indices)):
+            raise AssertionError(f"deterministic sort of {name} differs")
+        top = stats[0]
+        det = {"max_fill": int(top["totals"].max()), "cap": top["capacity"],
+               "ms": time_ms(lambda: bucket_sort.sort_with_stats(x), 3)}
+        if det["max_fill"] > det["cap"]:
+            raise AssertionError(f"{name}: bucket fill above the deterministic cap")
+        del srt, perm, stats
+        # Randomized, factor 4 and four attempts: the retries it took.
+        guard.clear_degradation_log()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", guard.DegradationWarning)
+            (rs, rp, (mf, ovf)), counts = counted(
+                lambda: baselines.randomized_sample_sort(x, gen, with_stats=True),
+                totals)
+            attempts = 1 + len(guard.degradation_log())
+            expect_launches(f"randomized_sample_sort {name}", counts,
+                            {"tile_sort": 2 * attempts, "splitter_ranks": attempts})
+            if int(ovf) or not (torch.equal(rs, want.values)
+                                and torch.equal(rp.long(), want.indices)):
+                raise AssertionError(f"randomized sample sort of {name} differs")
+            del rs, rp
+            rand = {"capacity_factor": 4.0, "max_attempts": 4,
+                    "cap": round_up(int(4.0 * 2 ** (attempts - 1) * lp / s), 128),
+                    "max_fill": int(mf), "overflow": int(ovf),
+                    "attempts": attempts,
+                    "ms": time_ms(lambda: baselines.randomized_sample_sort(x, gen), 3)}
+            guard.clear_degradation_log()
+            # One attempt, observational: the overflow as it comes.
+            (_, _, (mf1, ovf1)), _ = counted(
+                lambda: baselines.randomized_sample_sort(
+                    x, gen, with_stats=True, max_attempts=1), totals)
+            single = {"capacity_factor": 4.0, "max_attempts": 1,
+                      "max_fill": int(mf1), "overflow": int(ovf1),
+                      "ms": time_ms(lambda: baselines.randomized_sample_sort(
+                          x, gen, max_attempts=1), 3)}
+        xm = x[:n_merge]
+        (ms_keys, ms_perm), counts = counted(lambda: baselines.merge_sort(xm), totals)
+        expect_launches(f"merge_sort {name}", counts, {"tile_sort": 1})
+        wm = torch.sort(xm, stable=True)
+        if not (torch.equal(ms_keys, wm.values) and torch.equal(ms_perm.long(), wm.indices)):
+            raise AssertionError(f"merge sort of {name} differs")
+        del ms_keys, ms_perm, wm, want
+        merge = {"n": n_merge, "ms": time_ms(lambda: baselines.merge_sort(xm), 3)}
+        library = {"ms": time_ms(lambda: torch.sort(x, stable=True), 5)}
+        for alg, rec in (("deterministic", det), ("randomized", rand),
+                         ("randomized_single_shot", single), ("merge_sort", merge),
+                         ("torch_sort", library)):
+            times[alg][name] = rec["ms"]
+        print(json.dumps({
+            "comparison": name, "n": n, "deterministic": det,
+            "randomized": rand, "randomized_single_shot": single,
+            "merge_sort": merge, "torch_sort": library}))
+        del x
+    print(json.dumps({"comparison_spread": {
+        alg: {"min_ms": min(t.values()), "max_ms": max(t.values()),
+              "max_over_min": max(t.values()) / min(t.values()),
+              "slowest": max(t, key=t.get)}
+        for alg, t in times.items()}}))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1010,6 +1378,13 @@ def main() -> int:
     profile_main_path(cases[0])
     profile_main_path(cases[6])  # the batched top-k of the serving case
     profile_main_path(cases[10])  # the 2^26 sort through K5
+
+    # Guarded execution, the segmented sort and the baselines, each run
+    # counted as the main path's are.
+    segmented_phase(rng, totals)
+    checked_phase(cases[0].args[0], cases[6].args[0], totals)
+    faults_phase(totals)
+    comparison_phase(rng, totals)
 
     rows = [kernel_row(*entry, gen, totals[entry[0]])
             for entry in kernel_table()]

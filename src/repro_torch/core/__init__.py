@@ -1,8 +1,14 @@
-"""The sort library's public surface (PyTorch / CUDA port)."""
+"""The sort library's public surface (PyTorch / CUDA port).
+
+The baselines stay namespaced (``repro_torch.core.baselines``), as in
+the JAX package.
+"""
 
 from repro_torch.core.bucket_sort import (
     argsort,
     argsort_batched,
+    segment_argsort,
+    segment_sort,
     sort,
     sort_batched,
     sort_batched_with_stats,
@@ -10,6 +16,15 @@ from repro_torch.core.bucket_sort import (
     sort_kv_batched,
     sort_planned,
     sort_with_stats,
+)
+from repro_torch.core.faults import FaultInjected
+from repro_torch.core.guard import (
+    CHECK_MODES,
+    DegradationEvent,
+    DegradationWarning,
+    SortRuntimeError,
+    clear_degradation_log,
+    degradation_log,
 )
 from repro_torch.core.key_codec import SUPPORTED_DTYPES, KeyCodec, codec_for
 from repro_torch.core.partial_sort import topk, topk_batched
@@ -28,6 +43,8 @@ from repro_torch.core.sort_config import DEFAULT_CONFIG, PAPER_CONFIG, SortConfi
 __all__ = [
     "argsort",
     "argsort_batched",
+    "segment_argsort",
+    "segment_sort",
     "sort",
     "sort_batched",
     "sort_batched_with_stats",
@@ -37,6 +54,13 @@ __all__ = [
     "sort_with_stats",
     "topk",
     "topk_batched",
+    "CHECK_MODES",
+    "DegradationEvent",
+    "DegradationWarning",
+    "FaultInjected",
+    "SortRuntimeError",
+    "clear_degradation_log",
+    "degradation_log",
     "KeyCodec",
     "SUPPORTED_DTYPES",
     "codec_for",

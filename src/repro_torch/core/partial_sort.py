@@ -24,26 +24,34 @@ its row helpers at one row, and so is the 1-D ``topk`` here: it runs
 :func:`topk_batched` on one row, whose plan is the 1-D plan.
 
 Entry points take ``device=None``, meaning "cuda", and raise without
-CUDA unless given ``device="cpu"``.  Errors propagate: the JAX
-package's degradation chain (a stand-in plan, then ``jax.lax.top_k``)
-is not ported, and nothing here calls a library top-k or sort.
+CUDA unless given ``device="cpu"``.  ``cfg.check`` adds
+``guard.check_topk``'s post-conditions, and a failure walks the chain
+of ``bucket_sort._execute_packed``: on CUDA tensors one retry of the
+same plan, then a ``SortRuntimeError`` naming the kernel or check; on
+CPU tensors the JAX package's rungs, the default-config plan and then a
+stable sort with ties toward the smaller index (``kernels/ref.py``
+``topk_desc``, not ``torch.topk``, whose tie order differs).  Nothing on
+the card calls a library top-k or sort.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import guard
 from repro_torch.core.bucket_sort import (
     _INT_MAX,
     _PAD,
     _chunk_search,
     _execute_packed,
+    _launch,
     _local_sort,
+    _sorter,
 )
 from repro_torch.core.key_codec import codec_for
 from repro_torch.core.plan import SortPlan, TopkPlan, build_topk_plan
 from repro_torch.core.sort_config import DEFAULT_CONFIG, SortConfig, next_pow2
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ops import resolve_device
 
 
@@ -80,12 +88,13 @@ def _sort_wide_rows(kw, v2, plan: SortPlan, base: int):
     n = v2.shape[1]
     cols = torch.arange(n, dtype=torch.int32, device=v2.device)
     v = torch.where(v2 == _INT_MAX, base + cols, v2)
-    skw, sv = _execute_packed(kw, v, plan, base + n)
+    # The top-k's own chain handles a failure (topk_batched).
+    skw, sv = _execute_packed(kw, v, plan, base + n, degrade=False)
     return skw, torch.where(sv >= base, _INT_MAX, sv)
 
 
 def _sort_small_rows(kw, v2, plan: SortPlan | None, base: int,
-                     tplan: TopkPlan):
+                     tplan: TopkPlan, site: str):
     """Sort each row of (r, L) on (*words, payload); returns (r, L).
 
     ``plan`` is the TopkPlan's choice for this row, made from the shape
@@ -96,10 +105,12 @@ def _sort_small_rows(kw, v2, plan: SortPlan | None, base: int,
     ``bitonic.MAX_TILE``: the sample and candidate rows of a long 1-D
     top-k) runs the bucket-sort executor (:func:`_sort_wide_rows`).
     This is not a fallback, and both give the same sorted rows.
+    ``site`` names the rows for a kernel's error.
     """
     n = v2.shape[1]
     if plan is None:
-        skw, sv = ops.sort_tiles(*_pad_pow2(kw, v2), **_local_sort(tplan))
+        skw, sv = _launch(site, _sorter(tplan), ops.sort_tiles,
+                          *_pad_pow2(kw, v2), **_local_sort(tplan))
     else:
         skw, sv = _sort_wide_rows(kw, v2, plan, base)
     return tuple(w[:, :n] for w in skw), sv[:, :n]
@@ -120,8 +131,10 @@ def _smallest_k_rows(kw, tplan: TopkPlan):
     vals = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
     kw, vals = _pad_max(kw, vals.contiguous(), lp)
 
+    site = _topk_site(tplan)
     # Steps 1-3: tile sort of every row's tiles, samples from its epilogue.
-    tkw, tv, samp_kw, samp_v = ops.sort_tiles_sample(
+    tkw, tv, samp_kw, samp_v = _launch(
+        f"{site}/tiles", _sorter(tplan), ops.sort_tiles_sample,
         tuple(w.reshape(b * m, t) for w in kw), vals.reshape(b * m, t),
         num_samples=s, **_local_sort(tplan),
     )
@@ -130,7 +143,7 @@ def _smallest_k_rows(kw, tplan: TopkPlan):
     # Steps 4-5: sorted sample rows, s - 1 splitters per row.
     sskw, ssv = _sort_small_rows(
         tuple(w.reshape(b, m * s) for w in samp_kw), samp_v.reshape(b, m * s),
-        tplan.sample_plan, tplan.length, tplan,
+        tplan.sample_plan, tplan.length, tplan, f"{site}/samples",
     )
     sp_idx = torch.arange(1, s, device=dev) * (m * s) // s
     spkw_t = tuple(w[:, sp_idx].repeat_interleave(m, dim=0).contiguous()
@@ -138,7 +151,8 @@ def _smallest_k_rows(kw, tplan: TopkPlan):
     spv_t = ssv[:, sp_idx].repeat_interleave(m, dim=0).contiguous()
 
     # Step 6: ranks, reduced per row.
-    ranks = ops.splitter_ranks(tkw, tv, spkw_t, spv_t).reshape(b, m, s - 1)
+    ranks = _launch(f"{site}/tiles", "splitter_ranks", ops.splitter_ranks,
+                    tkw, tv, spkw_t, spv_t).reshape(b, m, s - 1)
     glob_ranks = ranks.sum(1, dtype=torch.int32)  # (b, s-1)
 
     # θ: the first splitter with global rank >= k (ranks are monotone in
@@ -170,8 +184,25 @@ def _smallest_k_rows(kw, tplan: TopkPlan):
     cv = torch.where(valid, tv.reshape(-1)[src].reshape(b, ccap), _INT_MAX)
     del tkw, tv, src
 
-    fkw, fv = _sort_small_rows(ckw, cv, tplan.final_plan, tplan.length, tplan)
+    fkw, fv = _sort_small_rows(ckw, cv, tplan.final_plan, tplan.length, tplan,
+                               f"{site}/candidates")
     return tuple(w[:, :k] for w in fkw), fv[:, :k]
+
+
+def _topk_site(tplan: TopkPlan) -> str:
+    return (f"TopkPlan(rows={tplan.rows}, n={tplan.length}, k={tplan.k}, "
+            f"strategy={tplan.strategy})")
+
+
+def _fallback_topk_plan(x, k: int, tplan: TopkPlan) -> TopkPlan | None:
+    """The CPU chain's second rung: the ``DEFAULT_CONFIG`` top-k plan of
+    the same signature, or None when it equals the failing plan."""
+    b, n = x.shape
+    try:
+        alt = build_topk_plan(n, k, x.dtype, DEFAULT_CONFIG, rows=b)
+    except ValueError:
+        return None
+    return None if alt == tplan else alt
 
 
 def topk(x, k: int, cfg: SortConfig = DEFAULT_CONFIG, *, device=None):
@@ -220,13 +251,40 @@ def topk_batched(x, k: int, cfg: SortConfig = DEFAULT_CONFIG, *, device=None):
     if b == 0:
         return (torch.zeros((0, k), dtype=x.dtype, device=x.device),
                 torch.zeros((0, k), dtype=torch.int32, device=x.device))
+    guard.validate_check(cfg.check)
     codec = codec_for(x.dtype, descending=True)
     kw = codec.encode(x)  # ascending canonical == descending score
-    if n <= tplan.direct_max:
-        vals = torch.arange(n, dtype=torch.int32, device=x.device)
-        fkw, fv = _sort_small_rows(kw, vals.expand(b, n).contiguous(),
-                                   tplan.final_plan, n, tplan)
-        fkw, fv = tuple(w[:, :k] for w in fkw), fv[:, :k]
-    else:
-        fkw, fv = _smallest_k_rows(kw, tplan)
-    return codec.decode(fkw), fv
+
+    def run(tp: TopkPlan):
+        if n <= tp.direct_max:
+            vals = torch.arange(n, dtype=torch.int32, device=x.device)
+            fkw, fv = _sort_small_rows(kw, vals.expand(b, n).contiguous(),
+                                       tp.final_plan, n, tp,
+                                       f"{_topk_site(tp)}/rows")
+            fkw, fv = tuple(w[:, :k] for w in fkw), fv[:, :k]
+        else:
+            fkw, fv = _smallest_k_rows(kw, tp)
+        v, i = codec.decode(fkw), fv
+        if cfg.check != "off":
+            guard.check_topk(x, v, i, k, cfg.check, codec)
+        return v, i
+
+    def reference():
+        # Ties toward the smaller index, as jax.lax.top_k: a stable sort
+        # of the words with the column as tie-break, not torch.topk.
+        tk, ti = ref.topk_desc(kw, k)
+        v = codec.decode(tk)
+        if cfg.check != "off":
+            guard.check_topk(x, v, ti, k, cfg.check, codec)
+        return v, ti
+
+    try:
+        return run(tplan)
+    except Exception as e1:
+        site = _topk_site(tplan)
+        if not x.is_cuda:
+            return guard.fall_back(site, run, _fallback_topk_plan(x, k, tplan),
+                                   reference, e1)
+        if not isinstance(e1, guard.SortRuntimeError):
+            raise
+        return guard.retry_once(site, lambda: run(tplan), e1)

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core import guard
+
 
 def next_pow2(x: int) -> int:
     """Smallest power of two >= x (next_pow2(0) == 1)."""
@@ -30,7 +32,6 @@ def round_up(x: int, mult: int) -> int:
 _NOT_YET_PORTED = (
     ("relocation", "gather", "Queue 1 item 4 (scatter relocation)"),
     ("plan", "default", "Queue 1 item 9 (autotune and plan files)"),
-    ("check", "off", "Queue 1 item 7 (guarded execution)"),
 )
 
 
@@ -56,8 +57,13 @@ class SortConfig:
     radix_bits: digit width of the radix strategy, 1, 2 or 4.
     merge_run: run length the merge strategy forms with the bitonic
         network before its merge levels; a power of two >= 2.
-    relocation / plan / check: as in the JAX package; only the defaults
-        run in the port.
+    relocation / plan: as in the JAX package; only the defaults run in
+        the port.
+    check: runtime invariant checking (``core/guard.py``): "off",
+        "bounds" (the capacity bound on every round's measured bucket
+        fills) or "full" (also permutation checksums and sortedness of
+        the output).  Not part of the config fingerprint, so checked and
+        unchecked runs share plans.
     descending: stable descending order through the codec.
 
     There is no ``impl``: the device of the tensors alone decides
@@ -123,11 +129,7 @@ class SortConfig:
                 'SortConfig.plan must be "default", "autotune", or a '
                 f"plan-file path, got {self.plan!r}"
             )
-        if self.check not in ("off", "bounds", "full"):
-            raise ValueError(
-                'SortConfig.check must be "off", "bounds" or "full", '
-                f"got {self.check!r}"
-            )
+        guard.validate_check(self.check, "SortConfig.check")
         for name, ported, item in _NOT_YET_PORTED:
             if getattr(self, name) != ported:
                 raise NotImplementedError(

@@ -9,12 +9,17 @@ is no fallback from one to the other, and no other device is taken.
 
 Keys are one or two biased int32 word tensors (``core/key_codec``),
 most significant first, or a bare tensor for one word; payloads int32.
+
+:func:`sort_tiles` and :func:`sort_tiles_sample` check the fault site
+``kernel.launch`` (``core/faults.py``) before they dispatch, on either
+device, so a test on the CPU can fail a launch the card would make.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.key_codec import codec_for
 from repro_torch.kernels import bitonic as _bitonic
 from repro_torch.kernels import merge as _merge
@@ -93,6 +98,7 @@ def sort_tiles(keys, vals: torch.Tensor, *, strategy: str = "bitonic",
         (sorted keys in the input structure, sorted vals).
     """
     _check_strategy(strategy)
+    faults.check("kernel.launch")  # once per launch, on either device
     if not _on_cuda(vals):
         return _plain_sort(keys, vals, strategy, radix_bits, merge_run)
     if strategy == "radix":
@@ -113,6 +119,7 @@ def sort_tiles_sample(keys, vals: torch.Tensor, *, num_samples: int,
         (sorted keys, sorted vals, sample keys (m, s), sample vals (m, s)).
     """
     _check_strategy(strategy)
+    faults.check("kernel.launch")  # once per launch, on either device
     if not _on_cuda(vals):
         sk, sv = _plain_sort(keys, vals, strategy, radix_bits, merge_run)
         sw = tuple(take_samples(w, num_samples) for w in as_words(sk))
@@ -200,5 +207,7 @@ def _wide_rows_topk(words, k: int):
     if r == 0:
         return tuple(w[:, :k] for w in words), cols[None, :k].expand(0, k)
     plan = build_words_plan(c, len(words), DEFAULT_CONFIG, rows=r)
-    skw, sv = _execute_packed(words, cols.expand(r, c).contiguous(), plan, c)
+    # The router has no degradation chain: a failure raises.
+    skw, sv = _execute_packed(words, cols.expand(r, c).contiguous(), plan, c,
+                              degrade=False)
     return tuple(w[:, :k] for w in skw), sv[:, :k]

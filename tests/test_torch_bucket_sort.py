@@ -26,11 +26,21 @@ from repro.core import bucket_sort as jax_sort  # noqa: E402
 from repro.core import clear_degradation_log, degradation_log  # noqa: E402
 from repro.core.sort_config import SortConfig as JaxConfig  # noqa: E402
 from repro_torch.core import bucket_sort  # noqa: E402
+from repro_torch.core import guard as port_guard  # noqa: E402
 from repro_torch.core.plan import build_plan  # noqa: E402
 from repro_torch.core.sort_config import SortConfig  # noqa: E402
 
 GEOMETRY = dict(tile=256, s=16, direct_max=512)
 DTYPES = ["int32", "uint32", "float32", "bfloat16", "int64", "float64"]
+
+
+@pytest.fixture(autouse=True)
+def _no_degradation():
+    """The port's CPU chain falls back to other plans on a failure; a
+    sound run here must never take it."""
+    port_guard.clear_degradation_log()
+    yield
+    assert port_guard.degradation_log() == ()
 
 
 def configs(order="asc", fuse_ranking=True):

@@ -7,6 +7,8 @@ machine with an NVIDIA card and nvcc:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_chip.py
 """
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -390,3 +392,169 @@ def test_router_top_k_of_rows_wider_than_a_cta(cuda):
     want = torch.sort(x, dim=1, descending=True, stable=True)
     assert torch.equal(v, want.values[:, :9])
     assert torch.equal(i.long(), want.indices[:, :9])
+
+
+def count_library_sorts(monkeypatch):
+    """Every call of torch's sorts and top-k from here on, by name."""
+    calls = []
+    for owner in (torch, torch.Tensor):
+        for name in ("sort", "argsort", "topk"):
+            def counted(*args, _fn=getattr(owner, name), _name=name, **kwargs):
+                calls.append(_name)
+                return _fn(*args, **kwargs)
+            monkeypatch.setattr(owner, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("check", ["bounds", "full"])
+def test_checked_sorts_on_the_card(cuda, check):
+    from repro_torch.core import SortConfig, bucket_sort, guard, partial_sort
+
+    x = torch.randint(-1000, 1000, (300_000,), generator=cuda, device="cuda",
+                      dtype=torch.int32)
+    y = torch.randn((8, 151_936), generator=cuda, device="cuda")
+    y = y.to(torch.bfloat16).float()  # ties
+    want = torch.sort(x, stable=True)
+    want_k = torch.sort(y, dim=1, descending=True, stable=True)
+    guard.clear_degradation_log()
+    cfg = SortConfig(check=check)
+    srt, perm, stats = bucket_sort.sort_with_stats(x, cfg)
+    assert torch.equal(srt, want.values)
+    assert torch.equal(perm.long(), want.indices)
+    assert stats and all(int(st["totals"].max()) <= st["capacity"] for st in stats)
+    v, i = partial_sort.topk_batched(y, 50, cfg)
+    assert torch.equal(v, want_k.values[:, :50])
+    assert torch.equal(i.long(), want_k.indices[:, :50])
+    assert guard.degradation_log() == ()
+
+
+def test_card_chain_retries_the_plan_then_raises(cuda, monkeypatch):
+    """On the card a failed kernel is retried once with the same plan, then
+    raised as a SortRuntimeError naming the node and the kernel; no rung
+    reaches a library sort (ROADMAP.md D8)."""
+    from repro_torch.core import bucket_sort, faults, guard, partial_sort
+    from repro_torch.kernels import ops
+
+    x = torch.randint(-(2**31), 2**31 - 1, (1 << 20,), generator=cuda,
+                      device="cuda", dtype=torch.int32)
+    y = torch.randn((8, 151_936), generator=cuda, device="cuda")
+    want = torch.sort(x, stable=True).values
+    want_k = torch.sort(y, dim=1, descending=True, stable=True)
+    guard.clear_degradation_log()
+    faults.reset()
+    calls = count_library_sorts(monkeypatch)
+    try:
+        with pytest.warns(guard.DegradationWarning):
+            with faults.inject("kernel.launch", on_hit=1, count=1):
+                ops.reset_launch_counts()
+                out = bucket_sort.sort(x)
+                torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert [ev.action for ev in guard.degradation_log()] == ["retry"]
+        assert ops.launch_counts()["splitter_partition"] > 0
+        guard.clear_degradation_log()
+        with pytest.warns(guard.DegradationWarning):
+            with faults.inject("kernel.launch", on_hit=1, count=2):
+                with pytest.raises(guard.SortRuntimeError) as ei:
+                    bucket_sort.sort(x)
+        err = ei.value
+        assert "/top:bucket(" in err.site and err.site.endswith(":tile_sort")
+        assert isinstance(err.__cause__, guard.SortRuntimeError)
+        assert isinstance(err.__cause__.__cause__, faults.FaultInjected)
+        assert len(guard.degradation_log()) == 1
+        guard.clear_degradation_log()
+        with pytest.warns(guard.DegradationWarning):
+            with faults.inject("kernel.launch", on_hit=1, count=1):
+                v, i = partial_sort.topk_batched(y, 50)
+        assert torch.equal(v, want_k.values[:, :50])
+        assert torch.equal(i.long(), want_k.indices[:, :50])
+        with pytest.warns(guard.DegradationWarning):
+            with faults.inject("kernel.launch", on_hit=1, count=2):
+                with pytest.raises(guard.SortRuntimeError, match="tile_sort"):
+                    partial_sort.topk_batched(y, 50)
+    finally:
+        faults.reset()
+        guard.clear_degradation_log()
+    assert calls == []
+
+
+def test_card_reports_a_capacity_below_the_fills(cuda):
+    from repro_torch.core import SortConfig, bucket_sort, build_plan, guard
+
+    x = torch.randint(-(2**31), 2**31 - 1, (1 << 19,), generator=cuda,
+                      device="cuda", dtype=torch.int32)
+    # The widest direct child a row sort takes: 16,384 = cap.
+    plan = build_plan(1 << 19, torch.int32, SortConfig(direct_max=1 << 14))
+    root = plan.root
+    assert root.kind == "bucket" and root.bucket_plan.kind == "direct"
+    child = dataclasses.replace(root.bucket_plan, length=128, lp=128)
+    bad = dataclasses.replace(
+        plan, root=dataclasses.replace(root, cap=128, bucket_plan=child))
+    with pytest.raises(guard.SortRuntimeError) as ei:
+        bucket_sort.sort_planned(x, bad, check="bounds")
+    assert ei.value.invariant == "bucket_fill <= cap" and "cap=128" in ei.value.site
+    torch.cuda.synchronize()  # the context survived: nothing read past a row
+    assert torch.equal(bucket_sort.sort_planned(x, plan, check="full"),
+                       torch.sort(x).values)
+
+
+def test_segmented_sort_equals_per_segment_torch_sort(cuda):
+    import numpy as np
+
+    from repro_torch.core import DEFAULT_CONFIG, bucket_sort, build_plan
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(0, 3000, 200)
+    lens[:4] = (0, 1, 20_000, 9000)  # empty, one key, past direct_max
+    off = np.concatenate([[0], np.cumsum(lens)])
+    x = torch.randint(-1000, 1000, (int(off[-1]),), generator=cuda,
+                      device="cuda", dtype=torch.int32)
+    seg = torch.repeat_interleave(torch.arange(200, device="cuda"),
+                                  torch.from_numpy(lens).cuda())
+    want = torch.sort((seg << 32) | (x.long() + 2**31), stable=True).indices
+    ops.reset_launch_counts()
+    perm = bucket_sort.segment_argsort(x, off)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    plan = build_plan(20_000, torch.int32, DEFAULT_CONFIG, rows=200)
+    assert plan.num_levels == 1
+    assert counts["tile_sort"] == 3 and counts["splitter_partition"] == 1
+    assert torch.equal(perm.long(), want)
+    assert torch.equal(bucket_sort.segment_sort(x, off), x[want])
+    with pytest.raises(ValueError, match="host data"):
+        bucket_sort.segment_sort(x, torch.from_numpy(off).cuda())
+
+
+def test_randomized_baseline_runs_its_kernels(cuda):
+    """The randomized sample sort's round on the card (K1 for the tiles and
+    the sample row, K3 for the ranks) equals its plain version on the CPU
+    given the same sample positions; merge_sort runs K1 once."""
+    from repro_torch.core import SortConfig, baselines, codec_for
+    from repro_torch.kernels import ops
+
+    x = torch.randint(-1000, 1000, (1 << 20,), generator=cuda, device="cuda",
+                      dtype=torch.int32)
+    want = torch.sort(x, stable=True)
+    ops.reset_launch_counts()
+    srt, perm, (mf, ovf) = baselines.randomized_sample_sort(
+        x, torch.Generator(device="cuda").manual_seed(0), with_stats=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert int(ovf) == 0 and counts["tile_sort"] == 2
+    assert counts["splitter_ranks"] == 1
+    assert torch.equal(srt, want.values) and torch.equal(perm.long(), want.indices)
+    for factor in (4.0, 0.5):  # 0.5 overflows: dropped elements
+        kw = codec_for(torch.int32).encode(x[: 1 << 16])
+        idx = torch.randint(0, 1 << 16, (8 * 64,), generator=cuda, device="cuda")
+        card = baselines._randomized_canonical(kw, idx, SortConfig(), factor, True)
+        cpu = baselines._randomized_canonical(
+            tuple(w.cpu() for w in kw), idx.cpu(), SortConfig(), factor, True)
+        assert torch.equal(card[0][0].cpu(), cpu[0][0])
+        assert torch.equal(card[1].cpu(), cpu[1])
+        assert [int(a) for a in card[2]] == [int(a) for a in cpu[2]]
+    ops.reset_launch_counts()
+    srt, perm = baselines.merge_sort(x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["tile_sort"] == 1
+    assert torch.equal(srt, want.values) and torch.equal(perm.long(), want.indices)

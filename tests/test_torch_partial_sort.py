@@ -23,6 +23,7 @@ from test_torch_codec import bits, make_keys, to_torch  # noqa: E402
 from repro.core import partial_sort as jax_partial  # noqa: E402
 from repro.core.sort_config import SortConfig as JaxConfig  # noqa: E402
 from repro_torch.core import partial_sort  # noqa: E402
+from repro_torch.core import guard as port_guard  # noqa: E402
 from repro_torch.core.plan import build_words_plan  # noqa: E402
 from repro_torch.core.sort_config import SortConfig  # noqa: E402
 from repro_torch.kernels import bitonic, ops  # noqa: E402
@@ -49,6 +50,15 @@ BATCHED_CASES = (
        for n, k in ((257, 1), (3000, 50))]
     + [(d, 3, 3000, 50) for d in ("int64", "float64")]
 )
+
+
+@pytest.fixture(autouse=True)
+def _no_degradation():
+    """The port's CPU chain falls back to other plans on a failure; a
+    sound run here must never take it."""
+    port_guard.clear_degradation_log()
+    yield
+    assert port_guard.degradation_log() == ()
 
 
 def scores(dtype, shape, seed):

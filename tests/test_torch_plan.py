@@ -228,11 +228,16 @@ def test_config_errors_name_the_field(field, value, match):
 @pytest.mark.parametrize("field,value,item", [
     ("relocation", "scatter", "Queue 1 item 4"),
     ("plan", "autotune", "Queue 1 item 9"),
-    ("check", "bounds", "Queue 1 item 7"),
 ])
 def test_unported_values_raise_naming_field_and_roadmap_item(field, value, item):
     with pytest.raises(NotImplementedError, match=rf"SortConfig.{field}=.*{item}"):
         dataclasses.replace(DEFAULT_CONFIG, **{field: value})
+
+
+@pytest.mark.parametrize("check", ["off", "bounds", "full"])
+def test_every_check_mode_is_ported(check):
+    """The checked modes run (Queue 1 item 7): a config takes each."""
+    assert dataclasses.replace(DEFAULT_CONFIG, check=check).check == check
 
 
 def test_named_configs_match_reference():

@@ -48,6 +48,7 @@ from repro_torch.core import (  # noqa: E402
     probed_config,
     recommend_strategy,
 )
+from repro_torch.core import guard as port_guard  # noqa: E402
 from repro_torch.core.plan import (  # noqa: E402
     build_plan,
     build_topk_plan,
@@ -60,6 +61,15 @@ from repro_torch.kernels import bitonic, merge, ops, radix  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 GEOMETRY = dict(tile=256, s=16, direct_max=512)
 STRATEGIES = ["radix", "merge"]
+
+
+@pytest.fixture(autouse=True)
+def _no_degradation():
+    """The port's CPU chain falls back to other plans on a failure; a
+    sound run here must never take it."""
+    port_guard.clear_degradation_log()
+    yield
+    assert port_guard.degradation_log() == ()
 
 
 def configs(strategy, fuse_sampling=True, **knobs):
