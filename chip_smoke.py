@@ -43,8 +43,8 @@ K5 radix sort, K6 merge sort) and then
 3. times each entry point (median of CUDA-event-timed runs) beside
    ``torch.sort`` or ``torch.topk``, with the peak device memory, and
    profiles the 2^26 sort (bitonic and radix) and the batched top-k;
-4. drives the paths of guarded execution, the segmented sort and the
-   paper's baselines, each a JSON line:
+4. drives the paths of guarded execution, the segmented sort, the
+   paper's baselines and the autotuner, each a JSON line:
    - segmented: ``segment_sort`` / ``segment_argsort`` of CSR column
      indices (65,536 rows of 0 to 512 entries, empty and one-entry rows
      included) and of 64 segments of 2^16 to 2^18 keys, against one
@@ -63,6 +63,22 @@ K5 radix sort, K6 merge sort) and then
      4, four attempts and one), ``merge_sort`` at 2^24 and stable
      ``torch.sort``, then each one's spread of time over the
      distributions;
+   - autotune: the cost model and the plan autotuner.  The 11
+     candidates of the space around ``DEFAULT_CONFIG`` at 2^26 int32
+     keys, each run once (checked against stable ``torch.sort``, its
+     peak memory read) and timed by the tuner (medians of 3 after a
+     warm-up), a line each with its predicted cost, channels, levels and
+     peak; then Spearman rho of predicted against measured, the measured
+     winner and whether it is among the five cheapest predicted or the
+     base, and a least-squares fit of the cost model's constants
+     (``FIT_GRID``).  The same space at 2^24 int64, held out: rho with
+     the committed constants.  Then ``sort(x, SortConfig(plan="autotune"))``
+     at 2^20 and 2^26 int32 against a fresh store in a temporary
+     directory: the cold call's seconds, the candidates it measured, the
+     winner, ``best_us`` / ``default_us`` / ``speedup``, a warm call with
+     no measurement and the same plan object, a ``save_plan`` /
+     ``plan=<path>`` round trip, no library sort in any of them, and the
+     time and peak memory of the winner beside the default plan's;
    every run of these paths has its kernel launches counted, and they
    must be those its plan calls for;
 5. prints a JSON line of per-kernel numbers (a kernel's and its library
@@ -95,9 +111,11 @@ import functools
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -186,51 +204,6 @@ def flat(out):
     for x in out:
         res.extend(x if isinstance(x, tuple) else (x,))
     return res
-
-
-# The row-sort kernel of each local-sort strategy: K1, K5, K6.
-SORTERS = {"bitonic": "tile_sort", "radix": "radix_sort", "merge": "merge_sort"}
-
-
-def kernel_launches(node, out):
-    """(kernel, rows, T, samples or splitters) of every launch a plan's
-    walk makes, in order."""
-    sorter = SORTERS[node.strategy]
-    if node.kind == "direct":
-        out.append((sorter, node.rows, node.lp, 0))
-        return out
-    out.append((sorter, node.rows * node.m, node.tile,
-                node.s if node.fuse_sampling else 0))
-    kernel_launches(node.sample_plan, out)
-    out.append(("splitter_partition" if node.fuse_ranking else "splitter_ranks",
-                node.rows * node.m, node.tile, node.s_round - 1))
-    kernel_launches(node.bucket_plan, out)
-    return out
-
-
-def topk_launches(tplan):
-    """The launches of a partial sort's walk, from its TopkPlan: a row
-    the plan gives no SortPlan is one launch of the strategy's row sort
-    at its power-of-two width, a row it does is that plan's walk."""
-    out = []
-    sorter = SORTERS[tplan.strategy]
-
-    def row(n, plan):
-        if plan is None:
-            width = max(2, 1 << (n - 1).bit_length())
-            out.append((sorter, tplan.rows, width, 0))
-        else:
-            kernel_launches(plan.root, out)
-
-    if tplan.length <= tplan.direct_max:
-        row(tplan.length, tplan.final_plan)
-        return out
-    tiles = tplan.rows * tplan.m
-    out.append((sorter, tiles, tplan.tile, tplan.s))
-    row(tplan.m * tplan.s, tplan.sample_plan)
-    out.append(("splitter_ranks", tiles, tplan.tile, tplan.s - 1))
-    row(tplan.ccap, tplan.final_plan)
-    return out
 
 
 def random_tiles(m, t, nw, gen):
@@ -795,6 +768,7 @@ def main_path_cases(rng):
         partial_sort,
         probe,
     )
+    from repro_torch.core.plan import kernel_launches, topk_launches
     from repro_torch.kernels import ops
 
     def shape2(x):
@@ -809,7 +783,7 @@ def main_path_cases(rng):
         nw = codec_for(x.dtype).num_words
         plan = build_plan(length, x.dtype, cfg, rows=rows)
         return [ln + (nw, knob(ln[0], cfg))
-                for ln in kernel_launches(plan.root, [])]
+                for ln in kernel_launches(plan.root)]
 
     def partial_launches(x, k, cfg=DEFAULT_CONFIG):
         rows, length = shape2(x)
@@ -958,11 +932,6 @@ def main_path_cases(rng):
     ]
 
 
-def plan_launches(plan) -> dict:
-    """Launches per kernel of a SortPlan's walk."""
-    return collections.Counter(k for k, *_ in kernel_launches(plan.root, []))
-
-
 def counted(fn, totals):
     """Run fn() with the launch counts set to 0 just before it and read
     just after; add them to ``totals``.  Returns (result, counts)."""
@@ -1020,6 +989,7 @@ def segmented_phase(rng, totals):
     """segment_sort / segment_argsort against one stable torch.sort of the
     (segment, key) composite, which sorts each segment stably."""
     from repro_torch.core import DEFAULT_CONFIG, bucket_sort, build_plan
+    from repro_torch.core.plan import plan_launches
 
     csr = rng.integers(0, 513, 65536)
     csr[:4] = (0, 1, 0, 512)  # empty, one-entry and full rows for sure
@@ -1078,6 +1048,7 @@ def checked_phase(x32, logits, totals):
         guard,
         partial_sort,
     )
+    from repro_torch.core.plan import plan_launches, topk_launches
 
     guard.clear_degradation_log()
     x = x32.cuda()
@@ -1137,6 +1108,7 @@ def faults_phase(totals):
     same plan, two raise; a shrunk capacity raises under check="bounds";
     no library sort runs."""
     from repro_torch.core import DEFAULT_CONFIG, bucket_sort, build_plan, faults, guard
+    from repro_torch.core.plan import plan_launches
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randint(-(2**31), 2**31 - 1, (1 << 20,), generator=gen,
@@ -1225,6 +1197,7 @@ def comparison_phase(rng, totals):
     the randomized sample sort, merge sort and torch.sort, 2^26 int32 keys
     under each distribution.  Measurements only."""
     from repro_torch.core import DEFAULT_CONFIG, baselines, bucket_sort, build_plan, guard
+    from repro_torch.core.plan import plan_launches
     from repro_torch.core.sort_config import round_up
 
     n, n_merge = 1 << 26, 1 << 24
@@ -1298,6 +1271,213 @@ def comparison_phase(rng, totals):
               "max_over_min": max(t.values()) / min(t.values()),
               "slowest": max(t, key=t.get)}
         for alg, t in times.items()}}))
+
+
+# The grids of the cost model's fitted constants (core/cost_model.py),
+# each from no weight to one that dominates its channel.
+FIT_GRID = {
+    "GLUE_FACTOR": (0.0, 0.25, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0,
+                    16.0, 24.0, 32.0),
+    "OP_BYTE_EQUIV": (0.0, 0.005, 0.01, 0.02, 0.05, 0.1, 0.2, 0.3, 0.5, 1.0),
+    "LAUNCH_BYTE_EQUIV": (0.0, 1e5, 1e6, 1e7, 1e8),
+}
+
+
+def fit_cost_constants(channels, times_us) -> dict:
+    """The point of ``FIT_GRID`` whose totals fit the measured times best:
+    least squares of log(time) - log(k * total) with k, the byte-equivalents'
+    time, fitted in closed form; with its error and the Spearman rho of its
+    totals against the times."""
+    from repro_torch.core import cost_model
+
+    logt = np.log(np.asarray(times_us, float))
+    best = None
+    for g, o, l in itertools.product(*FIT_GRID.values()):
+        tot = np.array([c["hbm_bytes"] + g * c["glue_bytes"] + o * c["op_units"]
+                        + l * c["launches"] for c in channels])
+        r = logt - np.log(tot)
+        err = float(np.sqrt(np.mean((r - r.mean()) ** 2)))
+        if best is None or err < best[0]:
+            best = (err, (g, o, l), tot)
+    err, consts, tot = best
+    return {**dict(zip(FIT_GRID, consts)), "rms_log_error": err,
+            "rho": cost_model.spearman(tot, times_us)}
+
+
+def calibration(n, dtype, totals, seed=0):
+    """Every candidate of the autotuner's space around DEFAULT_CONFIG at n
+    keys of dtype, on the tuner's own seeded data: each run once (its
+    launches counted and held to its plan, its output to stable
+    torch.sort, its peak memory read), then all timed by the tuner's
+    measurement (``autotune`` with no budget: medians of 3 after one
+    warm-up).  Returns one dict a candidate."""
+    from repro_torch.core import DEFAULT_CONFIG, autotune, bucket_sort, build_plan, cost_model
+    from repro_torch.core.plan import plan_launches
+
+    x = autotune._sample_input(n, dtype, 1, seed, "cuda")
+    want = torch.sort(x, stable=True).values
+    rows = []
+    for cand in autotune.candidate_space(DEFAULT_CONFIG, n):
+        plan = build_plan(n, dtype, cand.cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, counts = counted(
+            lambda: bucket_sort.sort_planned(x, plan, device=x.device), totals)
+        peak = torch.cuda.max_memory_allocated() - base
+        expect_launches(f"candidate {cand.label}", counts, plan_launches(plan))
+        if not torch.equal(out, want):
+            raise AssertionError(f"candidate {cand.label}: differs from torch.sort")
+        del out
+        node = plan.root
+        while node.kind == "bucket":
+            node = node.bucket_plan
+        rows.append({"label": cand.label, "levels": plan.num_levels,
+                     "direct": [node.rows, node.lp], "launches": sum(counts.values()),
+                     "peak_bytes_above_input": peak,
+                     "channels": cost_model.estimate(plan).as_dict()})
+    del x, want
+    res, _ = counted(lambda: autotune.autotune(
+        n, dtype, DEFAULT_CONFIG, device="cuda", measure_budget=None, seed=seed),
+        totals)
+    if res.failed or [c.label for c in res.candidates] != [r["label"] for r in rows]:
+        raise AssertionError(f"calibration: candidates failed {res.failed}")
+    for row, score in zip(rows, res.candidates):
+        row.update(predicted=score.predicted, us=score.us_per_call)
+    return rows
+
+
+def rank_report(name, rows) -> dict:
+    """Spearman rho of predicted against measured, the measured winner,
+    and whether it is among the five cheapest predicted or the base (the
+    tuner's default budget)."""
+    from repro_torch.core import cost_model
+
+    pred = [r["predicted"] for r in rows]
+    meas = [r["us"] for r in rows]
+    five = sorted(range(len(rows)), key=lambda i: (pred[i], i))[:5]
+    win = int(np.argmin(meas))
+    return {"calibration_rank": name, "rho": cost_model.spearman(pred, meas),
+            "measured_winner": rows[win]["label"],
+            "winner_in_five_cheapest_or_base": win in five or win == 0,
+            "five_cheapest_predicted": [rows[i]["label"] for i in five],
+            "best_us": meas[win], "base_us": meas[0], "speedup": meas[0] / meas[win]}
+
+
+def tuned_sort(x, store_dir, totals) -> dict:
+    """sort(x, SortConfig(plan="autotune")) against a fresh store: the cold
+    call tunes (five candidates measured) and runs the winner, a warm call
+    measures nothing and runs the same plan object, the store alone gives
+    an equal plan, and a plan file written by save_plan runs it too; no
+    library sort or top-k runs in any of them."""
+    from repro_torch.core import SortConfig, autotune, bucket_sort, build_plan, cost_model, faults
+    from repro_torch.core.plan import plan_launches
+
+    n = x.shape[0]
+    cfg = SortConfig(plan="autotune")
+    want = torch.sort(x, stable=True).values
+    cands = autotune.candidate_space(cfg, n)
+    plans = [build_plan(n, x.dtype, c.cfg) for c in cands]
+    chosen = autotune._select_measured(
+        [cost_model.estimate(p).total for p in plans], 5, [0])
+    key = autotune.cache_key(build_plan(n, x.dtype, cfg), x.device)
+
+    def resolve(c):
+        return bucket_sort.resolve_plan(n, x.dtype, c, device=x.device)
+
+    autotune.clear_memo()
+    faults.reset()
+    with library_sorts([]) as calls:
+        t0 = time.perf_counter()
+        out, cold = counted(lambda: bucket_sort.sort(x, cfg), totals)
+        cold_s = time.perf_counter() - t0
+        cold_measured = faults.hits("autotune.measure")
+        winner = resolve(cfg)
+        faults.reset()
+        warm_out, warm = counted(lambda: bucket_sort.sort(x, cfg), totals)
+        warm_same = resolve(cfg) is winner
+        autotune.clear_memo()
+        stored_equal = resolve(cfg) == winner
+        store_measured = faults.hits("autotune.measure")
+        path = os.path.join(store_dir, "winner.json")
+        autotune.save_plan(winner, path)
+        fcfg = SortConfig(plan=path)
+        file_out, from_file = counted(lambda: bucket_sort.sort(x, fcfg), totals)
+        file_equal = resolve(fcfg) == winner
+    rec = json.load(open(autotune.cache_path()))["plans"][key]
+    want_cold = collections.Counter()
+    for i in chosen:
+        for k, c in plan_launches(plans[i]).items():
+            want_cold[k] += 4 * c  # a warm-up and three timed runs
+    want_cold.update(plan_launches(winner))
+    expect_launches("cold tune and sort", cold, want_cold)
+    expect_launches("warm sort", warm, plan_launches(winner))
+    expect_launches("plan-file sort", from_file, plan_launches(winner))
+    equal = all(torch.equal(o, want) for o in (out, warm_out, file_out))
+    del out, warm_out, file_out, want
+    ms, peak = timed_with_peak(lambda: bucket_sort.sort(x, cfg))
+    base_ms, base_peak = timed_with_peak(lambda: bucket_sort.sort(x))
+    line = {
+        "autotune": f"sort {str(x.dtype).removeprefix('torch.')} n={n} plan=autotune", "cold_s": cold_s,
+        "candidates": len(cands), "measured": cold_measured,
+        "measured_labels": [cands[i].label for i in chosen],
+        "winner": rec["label"], "levels": winner.num_levels,
+        "best_us": rec["best_us"], "default_us": rec["default_us"],
+        "speedup": rec["speedup"], "equal": equal, "launches": dict(warm),
+        "warm_measurements": faults.hits("autotune.measure"),
+        "warm_same_plan": warm_same, "store_equal_plan": stored_equal,
+        "store_measurements": store_measured, "plan_file_equal_plan": file_equal,
+        "library_sorts": len(calls), "ms": ms, "default_ms": base_ms,
+        "peak_bytes_above_input": peak, "default_peak_bytes_above_input": base_peak,
+    }
+    print(json.dumps(line))
+    if not equal:
+        raise AssertionError("plan=autotune: differs from stable torch.sort")
+    if cold_measured != len(chosen) or line["warm_measurements"] or store_measured:
+        raise AssertionError(f"plan=autotune measured {cold_measured} cold, "
+                             f"{line['warm_measurements']} warm, {store_measured} "
+                             f"from the store; expected {len(chosen)}, 0, 0")
+    if not (warm_same and stored_equal and file_equal):
+        raise AssertionError("plan=autotune: warm, stored or file plan differs")
+    if calls:
+        raise AssertionError(f"a library sort ran in plan=autotune: {calls}")
+    return line
+
+
+def autotune_phase(rng, totals):
+    """The cost model and the autotuner on the card: the 11 candidates at
+    2^26 int32 measured (rho, the winner, a fit of the constants), the
+    same space at 2^24 int64 held out (rho with the committed constants),
+    then ``plan="autotune"`` at 2^20 and 2^26 int32 against fresh stores
+    in temporary directories."""
+    from repro_torch.core import autotune
+
+    rows = calibration(1 << 26, torch.int32, totals)
+    for i, r in enumerate(rows):
+        print(json.dumps({"calibration": "int32 2^26", "index": i, **r}))
+    report = rank_report("int32 2^26", rows)
+    report["fit"] = fit_cost_constants([r["channels"] for r in rows],
+                                       [r["us"] for r in rows])
+    print(json.dumps(report))
+    held = calibration(1 << 24, torch.int64, totals)
+    for i, r in enumerate(held):
+        print(json.dumps({"calibration": "int64 2^24 held out", "index": i, **r}))
+    print(json.dumps(rank_report("int64 2^24 held out", held)))
+    old = os.environ.get(autotune._CACHE_ENV)
+    try:
+        for n in (1 << 20, 1 << 26):
+            with tempfile.TemporaryDirectory() as tmp:
+                os.environ[autotune._CACHE_ENV] = os.path.join(tmp, "plans.json")
+                x = torch.from_numpy(
+                    rng.integers(-(2**31), 2**31, n, dtype=np.int32)).cuda()
+                tuned_sort(x, tmp, totals)
+                del x
+    finally:
+        if old is None:
+            os.environ.pop(autotune._CACHE_ENV, None)
+        else:
+            os.environ[autotune._CACHE_ENV] = old
+        autotune.clear_memo()
 
 
 def main() -> int:
@@ -1385,6 +1565,7 @@ def main() -> int:
     checked_phase(cases[0].args[0], cases[6].args[0], totals)
     faults_phase(totals)
     comparison_phase(rng, totals)
+    autotune_phase(rng, totals)
 
     rows = [kernel_row(*entry, gen, totals[entry[0]])
             for entry in kernel_table()]

@@ -1,12 +1,15 @@
 """The sort library's public surface (PyTorch / CUDA port).
 
 The baselines stay namespaced (``repro_torch.core.baselines``), as in
-the JAX package.
+the JAX package; so do the cost model and the autotuner, exported as
+modules.
 """
 
+from repro_torch.core import autotune, cost_model
 from repro_torch.core.bucket_sort import (
     argsort,
     argsort_batched,
+    resolve_plan,
     segment_argsort,
     segment_sort,
     sort,
@@ -28,7 +31,7 @@ from repro_torch.core.guard import (
 )
 from repro_torch.core.key_codec import SUPPORTED_DTYPES, KeyCodec, codec_for
 from repro_torch.core.partial_sort import topk, topk_batched
-from repro_torch.core.probe import probed_config, recommend_strategy
+from repro_torch.core.probe import priors_for, probed_config, recommend_strategy
 from repro_torch.core.plan import (
     LevelPlan,
     SortPlan,
@@ -41,8 +44,11 @@ from repro_torch.core.plan import (
 from repro_torch.core.sort_config import DEFAULT_CONFIG, PAPER_CONFIG, SortConfig
 
 __all__ = [
+    "autotune",
+    "cost_model",
     "argsort",
     "argsort_batched",
+    "resolve_plan",
     "segment_argsort",
     "segment_sort",
     "sort",
@@ -71,6 +77,7 @@ __all__ = [
     "build_topk_plan",
     "build_words_plan",
     "config_fingerprint",
+    "priors_for",
     "probed_config",
     "recommend_strategy",
     "DEFAULT_CONFIG",

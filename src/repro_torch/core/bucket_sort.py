@@ -56,7 +56,13 @@ import torch
 
 from repro_torch.core import guard
 from repro_torch.core.key_codec import codec_for
-from repro_torch.core.plan import LevelPlan, SortPlan, build_plan, build_words_plan
+from repro_torch.core.plan import (
+    SORTERS,
+    LevelPlan,
+    SortPlan,
+    build_plan,
+    build_words_plan,
+)
 from repro_torch.core.sort_config import DEFAULT_CONFIG, SortConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bitonic import take_samples
@@ -105,12 +111,9 @@ def _local_sort(node) -> dict:
                 merge_run=node.merge_run)
 
 
-_SORTERS = {"bitonic": "tile_sort", "radix": "radix_sort", "merge": "merge_sort"}
-
-
 def _sorter(node) -> str:
     """The kernel of a LevelPlan's or TopkPlan's row sort: K1, K5 or K6."""
-    return _SORTERS[node.strategy]
+    return SORTERS[node.strategy]
 
 
 def _launch(site: str, kernel: str, fn, *args, **kwargs):
@@ -416,15 +419,40 @@ def _index_rows(b: int, n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device).repeat(b, 1)
 
 
+def resolve_plan(length: int, dtype, cfg: SortConfig, *, rows: int = 1,
+                 device=None) -> SortPlan:
+    """The plan of a sort signature, as ``cfg.plan`` says:
+
+      * ``"default"``: :func:`repro_torch.core.plan.build_plan` (memoized);
+      * ``"autotune"``: the measured-best plan on ``device`` (None =
+        "cuda"), from the store or tuned on the first miss
+        (``core/autotune.plan_for``; the device is part of its key);
+      * a path: a plan file written by ``autotune.save_plan``, whose
+        signature must match (ValueError otherwise).
+    """
+    if cfg.plan == "default":
+        return build_plan(length, dtype, cfg, rows=rows)
+    from repro_torch.core import autotune  # autotune imports this module
+
+    if cfg.plan == "autotune":
+        return autotune.plan_for(length, dtype, cfg, rows=rows, device=device)
+    return autotune.load_plan(cfg.plan, length=length, dtype=dtype, cfg=cfg,
+                              rows=rows)
+
+
 def _prepare(keys, cfg: SortConfig, device, ndim: int):
-    """Device, tensor and plan of an entry point's keys."""
+    """Device, tensor and plan of an entry point's keys; the plan is None
+    when there is nothing to sort (no rows, or rows of at most one key),
+    which every entry point returns before sorting."""
     dev = resolve_device(device)
     keys = torch.as_tensor(keys, device=dev)
     if keys.dim() != ndim:
         raise ValueError(f"expected {ndim}-D keys, got shape {tuple(keys.shape)}")
     codec = codec_for(keys.dtype, cfg.descending)
     rows, length = (1, keys.shape[0]) if ndim == 1 else tuple(keys.shape)
-    plan = build_plan(length, keys.dtype, cfg, rows=rows)
+    plan = None
+    if rows and length > 1:
+        plan = resolve_plan(length, keys.dtype, cfg, rows=rows, device=dev)
     return keys, codec, plan
 
 
@@ -663,7 +691,7 @@ def _segment_sorted_packed(x, layout, cfg: SortConfig):
     pkw = tuple(torch.where(validt, u[srct], _PAD) for u in kw)
     pv = torch.where(validt, col, w + col)
     del validt, srct
-    plan = build_plan(w, x.dtype, cfg, rows=lens.size)
+    plan = resolve_plan(w, x.dtype, cfg, rows=lens.size, device=dev)
     skw, sv = _execute_packed(pkw, pv, plan, 2 * w, check=cfg.check)
     return codec, skw, sv
 

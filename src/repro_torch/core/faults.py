@@ -7,13 +7,15 @@ an integer increment.
 
 Sites are a closed registry (``SITES``), so a typo in either the
 instrumentation or a test is an immediate ``ValueError`` rather than a
-rule that never fires.  The port instruments ``kernel.launch`` only:
-``kernels/ops.py`` ``sort_tiles`` and ``sort_tiles_sample`` check it
-before they dispatch, on either device.  The JAX package checks it when
-it traces a jitted sort, once per trace; the port checks it once per
-launch, so a sort hits the site once per row-sort launch of its plan.
-The other five names stay registered for the modules that will check
-them (ROADMAP.md Queue 1 items 9, 10 and 12).
+rule that never fires.  ``kernels/ops.py`` ``sort_tiles`` and
+``sort_tiles_sample`` check ``kernel.launch`` before they dispatch, on
+either device.  The JAX package checks it when it traces a jitted sort,
+once per trace; the port checks it once per launch, so a sort hits the
+site once per row-sort launch of its plan.  ``core/autotune.py`` checks
+``cache.load`` and ``cache.save`` at each store read and write, and
+``autotune.measure`` once per candidate measurement, as the JAX package
+does.  The other two names stay registered for the modules that will check
+them (ROADMAP.md Queue 1 items 10 and 12).
 
 Two ways to arm a rule:
 
@@ -51,9 +53,9 @@ __all__ = [
 #: Closed registry of named fault sites.
 SITES = (
     "kernel.launch",        # row-sort kernel dispatch (kernels/ops.py)
-    "cache.load",           # plan-cache store read (autotune, not ported)
-    "cache.save",           # plan-cache store persist (autotune, not ported)
-    "autotune.measure",     # candidate measurement (autotune, not ported)
+    "cache.load",           # plan-cache store read (core/autotune.py)
+    "cache.save",           # plan-cache store persist (core/autotune.py)
+    "autotune.measure",     # candidate measurement (core/autotune.py)
     "collective.exchange",  # all-to-all of the distributed sort (not ported)
     "pipeline.producer",    # prefetch thread of the data pipeline (not ported)
 )

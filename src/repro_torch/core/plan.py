@@ -16,11 +16,15 @@ rule does not apply).  A plan depends on shape, dtype and config only:
 the device of the tensors it runs on decides kernel or plain version.
 
 :func:`build_topk_plan` is the partial sort's one-round schedule
-(:class:`TopkPlan`, ``core/partial_sort.py``).
+(:class:`TopkPlan`, ``core/partial_sort.py``).  :func:`kernel_launches`
+and :func:`topk_launches` list the kernel launches a plan's walk makes;
+:func:`plan_to_dict` / :func:`plan_from_dict` serialize a plan for the
+autotuner's store and plan files (``core/autotune.py``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import hashlib
@@ -316,3 +320,113 @@ def build_topk_plan(length: int, k: int, dtype, cfg: SortConfig, *,
                          f"length={length}")
     return _assemble_topk_plan(length, k, cfg, rows, codec.num_words,
                                bitonic.MAX_TILE)
+
+
+# ----------------------------------------------------------------------
+# The launches of a plan's walk
+# ----------------------------------------------------------------------
+
+#: The row-sort kernel of each local-sort strategy: K1, K5, K6.
+SORTERS = {"bitonic": "tile_sort", "radix": "radix_sort", "merge": "merge_sort"}
+
+
+def kernel_launches(node: LevelPlan | None, out: list | None = None) -> list:
+    """(kernel, rows, T, samples or splitters) of every launch the
+    executor's walk of ``node`` makes on the card, in order: a row sort
+    (K1, K5 or K6 by the node's strategy) of each level's tiles or direct
+    rows, and K2 (fused ranking) or K3 of each bucket level."""
+    out = [] if out is None else out
+    if node is None:
+        return out
+    sorter = SORTERS[node.strategy]
+    if node.kind == "direct":
+        out.append((sorter, node.rows, node.lp, 0))
+        return out
+    out.append((sorter, node.rows * node.m, node.tile,
+                node.s if node.fuse_sampling else 0))
+    kernel_launches(node.sample_plan, out)
+    out.append(("splitter_partition" if node.fuse_ranking else "splitter_ranks",
+                node.rows * node.m, node.tile, node.s_round - 1))
+    kernel_launches(node.bucket_plan, out)
+    return out
+
+
+def topk_launches(tplan: TopkPlan) -> list:
+    """The launches of a partial sort's walk, from its TopkPlan: a row
+    the plan gives no SortPlan is one launch of the strategy's row sort
+    at its power-of-two width, a row it does is that plan's walk."""
+    out = []
+    sorter = SORTERS[tplan.strategy]
+
+    def row(n, plan):
+        if plan is None:
+            out.append((sorter, tplan.rows, max(2, next_pow2(n)), 0))
+        else:
+            kernel_launches(plan.root, out)
+
+    if tplan.length <= tplan.direct_max:
+        row(tplan.length, tplan.final_plan)
+        return out
+    tiles = tplan.rows * tplan.m
+    out.append((sorter, tiles, tplan.tile, tplan.s))
+    row(tplan.m * tplan.s, tplan.sample_plan)
+    out.append(("splitter_ranks", tiles, tplan.tile, tplan.s - 1))
+    row(tplan.ccap, tplan.final_plan)
+    return out
+
+
+def plan_launches(plan: SortPlan) -> collections.Counter:
+    """Launches per kernel of a SortPlan's walk."""
+    return collections.Counter(k for k, *_ in kernel_launches(plan.root))
+
+
+# ----------------------------------------------------------------------
+# Serialization: the autotuner's store and plan files
+# ----------------------------------------------------------------------
+
+# The port's own record tag: its plans carry no TPU fields (block_rows,
+# impl, interpret, backend, relocation), so a JAX package record
+# (sort_plan/v2) is not one of them.
+_SCHEMA = "torch_sort_plan/v1"
+
+
+def _node_from_dict(d) -> LevelPlan | None:
+    if d is None:
+        return None
+    d = dict(d)
+    d["sample_plan"] = _node_from_dict(d.get("sample_plan"))
+    d["bucket_plan"] = _node_from_dict(d.get("bucket_plan"))
+    return LevelPlan(**d)
+
+
+def plan_to_dict(plan: SortPlan) -> dict:
+    """JSON-serializable record of a plan; ``plan_from_dict(plan_to_dict(p))
+    == p`` exactly."""
+    d = dataclasses.asdict(plan)
+    d["schema"] = _SCHEMA
+    return d
+
+
+def plan_from_dict(d: dict) -> SortPlan:
+    """The :class:`SortPlan` of a record written by :func:`plan_to_dict`.
+
+    Raises:
+        ValueError: for a record without the port's schema tag (a JAX
+            package record, an older schema), or with fields that are
+            not the plan's.
+    """
+    d = dict(d)
+    schema = d.pop("schema", None)
+    if schema != _SCHEMA:
+        raise ValueError(f"not a {_SCHEMA} record (schema={schema!r})")
+    try:
+        d["root"] = _node_from_dict(d["root"])
+        return SortPlan(**d)
+    except (KeyError, TypeError) as e:
+        raise ValueError(f"malformed {_SCHEMA} record: {e}") from e
+
+
+def plan_json(plan: SortPlan) -> str:
+    """Canonical JSON of a plan (sorted keys): byte-identical for equal
+    plans."""
+    return json.dumps(plan_to_dict(plan), sort_keys=True)

@@ -26,8 +26,8 @@ PyTorch has no tracers, so there is no such check.  Use::
     cfg = probe.probed_config(x, SortConfig())
     y = bucket_sort.sort(x, cfg)     # the plan carries the strategy
 
-``priors_for`` (the cost model's priors) waits for the cost model
-(ROADMAP.md Queue 1 item 9).
+:func:`priors_for` turns the same two signals into the cost model's
+``Priors`` (``core/cost_model.py``), for the autotuner's pruning.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.cost_model import Priors
 from repro_torch.core.key_codec import codec_for
 from repro_torch.core.sort_config import DEFAULT_CONFIG, SortConfig
 
@@ -116,6 +117,25 @@ def recommend_strategy(x, cfg: SortConfig = DEFAULT_CONFIG, *,
     ):
         return "radix"
     return "bitonic"
+
+
+def priors_for(x, cfg: SortConfig = DEFAULT_CONFIG, *,
+               sample_size: int = 4096) -> Priors:
+    """The cost model's distribution priors for the data ``x``:
+    ``sortedness`` discounts the merge strategy's compares,
+    ``top_bits_entropy`` scales the radix term for skewed digits.  Pass
+    the result to ``autotune.autotune(..., priors=...)`` or
+    ``autotune.plan_for(..., priors=...)``.
+
+    Example:
+        >>> import torch
+        >>> from repro_torch.core import probe
+        >>> probe.priors_for(torch.arange(4096, dtype=torch.int32)).sortedness
+        1.0
+    """
+    sig = probe(x, sample_size=sample_size, descending=cfg.descending)
+    return Priors(sortedness=sig["sortedness"],
+                  top_bits_entropy=sig["top_bits_entropy"])
 
 
 def probed_config(x, cfg: SortConfig = DEFAULT_CONFIG, *,

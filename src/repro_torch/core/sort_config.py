@@ -31,7 +31,6 @@ def round_up(x: int, mult: int) -> int:
 # (field, value the port runs, ROADMAP.md item that ports the others)
 _NOT_YET_PORTED = (
     ("relocation", "gather", "Queue 1 item 4 (scatter relocation)"),
-    ("plan", "default", "Queue 1 item 9 (autotune and plan files)"),
 )
 
 
@@ -57,8 +56,13 @@ class SortConfig:
     radix_bits: digit width of the radix strategy, 1, 2 or 4.
     merge_run: run length the merge strategy forms with the bitonic
         network before its merge levels; a power of two >= 2.
-    relocation / plan: as in the JAX package; only the defaults run in
-        the port.
+    relocation: as in the JAX package; only "gather" runs in the port.
+    plan: how the sort's plan is obtained (``bucket_sort.resolve_plan``):
+        "default" builds it from these knobs, "autotune" takes the
+        measured-best plan for the signature on the sort's device
+        (``core/autotune.py``, kept in a store on disk), and any other
+        string is the path of a plan file written by
+        ``autotune.save_plan``.
     check: runtime invariant checking (``core/guard.py``): "off",
         "bounds" (the capacity bound on every round's measured bucket
         fills) or "full" (also permutation checksums and sortedness of

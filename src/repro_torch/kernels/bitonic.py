@@ -107,9 +107,12 @@ def bitonic_network_rows(keys, vals):
 
 
 def take_samples(t: torch.Tensor, num_samples: int) -> torch.Tensor:
-    """Sample j of each sorted row of (m, T): element (j+1)*T/s - 1."""
+    """Sample j of each sorted row of (m, T): element (j+1)*T/s - 1.
+    A contiguous (m, s) copy, as the kernels' sample epilogue writes: a
+    strided view would reach the next level's row sort, and the kernels
+    take contiguous rows only."""
     m, width = t.shape
-    return t.reshape(m, num_samples, width // num_samples)[:, :, -1]
+    return t.reshape(m, num_samples, width // num_samples)[:, :, -1].contiguous()
 
 
 def largest_pow2_divisor(m: int, limit: int) -> int:

@@ -241,6 +241,19 @@ def test_unfused_ranking_sort_equals_stable_torch_sort(cuda):
     assert torch.equal(out, torch.sort(x, stable=True).values)
 
 
+@pytest.mark.parametrize("strategy", ["bitonic", "radix", "merge"])
+def test_unfused_sampling_sort_equals_stable_torch_sort(cuda, strategy):
+    """fuse_sampling=False at 2^20: the 16,384 samples sliced from the
+    sorted tiles (256 tiles x 64) reach the sample level's tile sort
+    unpadded, as the slice left them."""
+    from repro_torch.core import SortConfig, bucket_sort
+
+    x = torch.randint(-(2**31), 2**31 - 1, (1 << 20,), generator=cuda,
+                      device="cuda", dtype=torch.int32)
+    cfg = SortConfig(fuse_sampling=False, fuse_ranking=False, strategy=strategy)
+    assert torch.equal(bucket_sort.sort(x, cfg), torch.sort(x, stable=True).values)
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     from repro_torch.kernels import ops
 
@@ -558,3 +571,62 @@ def test_randomized_baseline_runs_its_kernels(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts()["tile_sort"] == 1
     assert torch.equal(srt, want.values) and torch.equal(perm.long(), want.indices)
+
+
+@pytest.mark.parametrize("log2n", [20, 26])
+def test_autotuned_sort_on_the_card(cuda, log2n, tmp_path, monkeypatch):
+    """sort(x, plan="autotune") against a fresh store: the cold call
+    measures the five cheapest predicted candidates (the base among them)
+    on the card and runs the winner; a warm call measures nothing and runs
+    the same plan object; a plan file written by save_plan runs an equal
+    plan; the output equals stable torch.sort and no library sort runs."""
+    from repro_torch.core import SortConfig, autotune, bucket_sort, faults
+    from repro_torch.core.plan import plan_launches
+    from repro_torch.kernels import ops
+
+    monkeypatch.setenv("REPRO_TORCH_SORT_PLAN_CACHE", str(tmp_path / "plans.json"))
+    autotune.clear_memo()
+    faults.reset()
+    x = torch.randint(-(2**31), 2**31 - 1, (1 << log2n,), generator=cuda,
+                      device="cuda", dtype=torch.int32)
+    want = torch.sort(x, stable=True).values
+    cfg = SortConfig(plan="autotune")
+    calls = count_library_sorts(monkeypatch)
+    assert torch.equal(bucket_sort.sort(x, cfg), want)
+    assert faults.hits("autotune.measure") == 5
+    winner = bucket_sort.resolve_plan(x.shape[0], x.dtype, cfg, device="cuda")
+    faults.reset()
+    ops.reset_launch_counts()
+    assert torch.equal(bucket_sort.sort(x, cfg), want)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in ops.launch_counts().items() if c} == dict(
+        plan_launches(winner))
+    assert faults.hits("autotune.measure") == 0
+    assert bucket_sort.resolve_plan(x.shape[0], x.dtype, cfg, device="cuda") is winner
+    path = str(tmp_path / "winner.json")
+    autotune.save_plan(winner, path)
+    assert torch.equal(bucket_sort.sort(x, SortConfig(plan=path)), want)
+    assert autotune.load_plan(path) == winner
+    assert calls == []
+    autotune.clear_memo()
+
+
+def test_cost_model_ranks_the_calibration_slice(cuda):
+    """The cost model's acceptance on the card: over the 11 candidates
+    around DEFAULT_CONFIG at 2^26 int32 keys, each measured (median of 3
+    after a warm-up), Spearman rho of predicted against measured is at
+    least 0.6, and the measured winner is among the five cheapest
+    predicted candidates or is the base."""
+    from repro_torch.core import DEFAULT_CONFIG, autotune, cost_model
+
+    res = autotune.autotune(1 << 26, torch.int32, DEFAULT_CONFIG, device="cuda",
+                            measure_budget=None)
+    assert not res.failed and len(res.candidates) == 11
+    pred = [c.predicted for c in res.candidates]
+    meas = [c.us_per_call for c in res.candidates]
+    rho = cost_model.spearman(pred, meas)
+    table = [(c.label, c.predicted, c.us_per_call) for c in res.candidates]
+    assert rho >= 0.6, (rho, table)
+    five = sorted(range(len(pred)), key=lambda i: (pred[i], i))[:5]
+    winner = min(range(len(meas)), key=meas.__getitem__)
+    assert winner in five or winner == 0, table

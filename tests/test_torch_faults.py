@@ -8,7 +8,9 @@ expected hits come from the plan.  Under an injected fault the CPU chain
 must return the reference's result bit for bit and log the same actions
 as the JAX package's chain; tolerance zero throughout.  The JAX side
 runs ``impl="xla"`` on lengths no other test sorts, so its jitted sorts
-trace (and hit the site) afresh.
+trace (and hit the site) afresh.  The autotuner's sites (``cache.load``,
+``cache.save``, ``autotune.measure``) must give the reference's
+degradation events, warnings, errors and denylists under the same rule.
 """
 
 import pytest
@@ -17,6 +19,8 @@ torch = pytest.importorskip("torch")
 # One intra-op thread: the suite runs under several workers at once.
 torch.set_num_threads(1)
 
+import json  # noqa: E402
+import os  # noqa: E402
 import warnings  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
@@ -27,7 +31,7 @@ from repro.core import faults as jax_faults  # noqa: E402
 from repro.core import guard as jax_guard  # noqa: E402
 from repro.core import partial_sort as jax_partial  # noqa: E402
 from repro.core.sort_config import SortConfig as JaxConfig  # noqa: E402
-from repro_torch.core import bucket_sort, faults, guard, partial_sort  # noqa: E402
+from repro_torch.core import autotune, bucket_sort, faults, guard, partial_sort  # noqa: E402
 from repro_torch.core.plan import build_plan, build_topk_plan  # noqa: E402
 from repro_torch.core.sort_config import SortConfig  # noqa: E402
 
@@ -270,3 +274,59 @@ def test_retry_once_is_the_card_chain():
     assert ei.value.__cause__ is first
     assert "retry" in ei.value.detail
     assert len(calls) == 1 and len(guard.degradation_log()) == 1
+
+
+# ----------------------------------------------------------------------
+# cache.load, cache.save, autotune.measure: the autotuner's sites
+# ----------------------------------------------------------------------
+
+
+def tuner_run(mod, autotune_mod, guard_mod, path, dtype, site, on_hit, count):
+    """One plan_for under an injected fault: (the degradation events and
+    warnings, the path written as <store>; the error raised, if any; the
+    store's denylisted labels)."""
+    autotune_mod.clear_memo()
+    guard_mod.clear_degradation_log()
+    err = None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with mod.inject(site, on_hit=on_hit, count=count):
+            kw = dict(path=str(path), max_trials=2, repeats=1, measure_budget=2)
+            try:
+                if autotune_mod is autotune:
+                    autotune_mod.plan_for(2048, dtype, CFG, device="cpu", **kw)
+                else:
+                    autotune_mod.plan_for(2048, dtype, JCFG, **kw)
+            except Exception as e:  # the outcome under comparison
+                err = (type(e).__name__, getattr(e, "site", None),
+                       getattr(e, "invariant", None))
+    events = [(ev.site, ev.action, ev.frm.replace(str(path), "<store>"), ev.to,
+               ev.error) for ev in guard_mod.degradation_log()]
+    messages = [str(w.message).replace(str(path), "<store>")
+                for w in caught if issubclass(w.category, UserWarning)]
+    deny = []
+    if os.path.exists(path):
+        for labels in json.load(open(path)).get("denylist", {}).values():
+            deny.extend(sorted(labels))
+    autotune_mod.clear_memo()
+    return events, messages, err, deny
+
+
+@pytest.mark.parametrize("site,on_hit,count", [
+    ("cache.load", 1, 10**6), ("cache.save", 1, 10**6),
+    ("autotune.measure", 1, 1), ("autotune.measure", 2, 3),
+    ("autotune.measure", 1, 10**6)])
+def test_autotune_sites_degrade_as_the_reference(tmp_path, site, on_hit, count):
+    """The same rule at a site of the tuner gives the JAX package's
+    degradation events, warnings, error and denylist: an unreadable store
+    warns and tunes on; an unwritable one records a cache.save fallback
+    and serves the plan from memory; a failed measurement is retried,
+    then denylisted; every candidate failing raises at autotune.measure."""
+    from repro.core import autotune as jax_autotune
+
+    want = tuner_run(jax_faults, jax_autotune, jax_guard, tmp_path / "jax.json",
+                     jnp.int32, site, on_hit, count)
+    got = tuner_run(faults, autotune, guard, tmp_path / "port.json",
+                    torch.int32, site, on_hit, count)
+    assert got == want
+    assert got[0] or got[1]  # the fault was seen, not silently absorbed

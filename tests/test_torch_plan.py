@@ -6,7 +6,9 @@ the recursion tree) must be equal to the reference
 plan's, bit for bit, across a sweep of (length, rows, words, config);
 so must every algorithmic field of the top-k plan.  Where the reference
 planner cannot finish (a level that never shrinks), the port refuses up
-front with a ValueError naming ``s``.
+front with a ValueError naming ``s``.  Plan records (the autotuner's
+store and plan files) round-trip exactly under the port's own schema
+tag and refuse any other record.
 """
 
 import pytest
@@ -16,6 +18,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import dataclasses  # noqa: E402
+import json  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -227,11 +230,57 @@ def test_config_errors_name_the_field(field, value, match):
 
 @pytest.mark.parametrize("field,value,item", [
     ("relocation", "scatter", "Queue 1 item 4"),
-    ("plan", "autotune", "Queue 1 item 9"),
 ])
 def test_unported_values_raise_naming_field_and_roadmap_item(field, value, item):
     with pytest.raises(NotImplementedError, match=rf"SortConfig.{field}=.*{item}"):
         dataclasses.replace(DEFAULT_CONFIG, **{field: value})
+
+
+@pytest.mark.parametrize("plan", ["default", "autotune", "plans/winner.json"])
+def test_plan_autotune_and_plan_files_are_accepted(plan):
+    """Queue 1 item 9: SortConfig.plan takes "autotune" and a plan-file
+    path (resolved when a sort runs), and the fingerprint ignores it."""
+    cfg = dataclasses.replace(DEFAULT_CONFIG, plan=plan)
+    assert cfg.plan == plan
+    assert plan_mod.config_fingerprint(cfg) == plan_mod.config_fingerprint(DEFAULT_CONFIG)
+
+
+SERIALIZED = [  # (length, rows, dtype, config)
+    (1, 1, "int32", DEFAULT_CONFIG), (77_777, 1, "float32", PAPER_CONFIG),
+    (1 << 26, 1, "int32", DEFAULT_CONFIG), (20_000, 3, "int64",
+                                           SortConfig(256, 16, 512, strategy="merge")),
+    (5000, 256, "bfloat16", SortConfig(256, 16, 512, fuse_sampling=False,
+                                       fuse_ranking=False, descending=True)),
+    (1 << 20, 1, "uint32", SortConfig(strategy="radix", radix_bits=2)),
+]
+
+
+@pytest.mark.parametrize("sig", SERIALIZED, ids=lambda s: f"{s[0]}-{s[1]}-{s[2]}")
+def test_plan_serialization_round_trips_exactly(sig):
+    length, rows, dtype, cfg = sig
+    plan = plan_mod.build_plan(length, dtype, cfg, rows=rows)
+    d = plan_mod.plan_to_dict(plan)
+    assert d["schema"] == "torch_sort_plan/v1"
+    assert plan_mod.plan_from_dict(json.loads(json.dumps(d))) == plan
+    text = plan_mod.plan_json(plan)
+    plan_mod._assemble_plan.cache_clear()  # an equal plan, built afresh
+    again = plan_mod.build_plan(length, dtype, dataclasses.replace(cfg), rows=rows)
+    assert again is not plan and again == plan
+    assert plan_mod.plan_json(again) == text
+
+
+def test_plan_from_dict_refuses_other_records():
+    jax_record = jax_plan.plan_to_dict(jax_plan.build_plan(
+        10_000, "int32", jax_cfg(256, 16, 512)))
+    with pytest.raises(ValueError, match="not a torch_sort_plan/v1 record"):
+        plan_mod.plan_from_dict(jax_record)
+    d = plan_mod.plan_to_dict(plan_mod.build_plan(10_000, "int32", DEFAULT_CONFIG))
+    for broken in ({k: v for k, v in d.items() if k != "schema"},
+                   {**d, "schema": "torch_sort_plan/v0"},
+                   {k: v for k, v in d.items() if k != "root"},
+                   {**d, "block_rows": 8}):
+        with pytest.raises(ValueError):
+            plan_mod.plan_from_dict(broken)
 
 
 @pytest.mark.parametrize("check", ["off", "bounds", "full"])

@@ -11,7 +11,7 @@ log empty after every reference call; the probe's signals (to 1e-12) and
 picks against ``repro.core.probe``; wide-row ``ops.topk`` against the
 reference's ``ops.topk(impl="xla")``.  The three strategies must give
 equal outputs everywhere in the pipeline, and the launches a CPU run
-makes must be the ones ``chip_smoke.py`` derives from the plan.  Widths
+makes must be the plan's walk, which ``chip_smoke.py`` counts against.  Widths
 are small (tile 256, s 16, direct_max 512).  The CUDA kernels run only
 on the card (``tests/test_torch_chip.py``, ``chip_smoke.py``).
 """
@@ -25,8 +25,6 @@ torch.set_num_threads(1)
 import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import functools  # noqa: E402
-import importlib.util  # noqa: E402
-from pathlib import Path  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -50,15 +48,17 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core import guard as port_guard  # noqa: E402
 from repro_torch.core.plan import (  # noqa: E402
+    SORTERS,
     build_plan,
     build_topk_plan,
     config_fingerprint,
+    kernel_launches,
+    topk_launches,
 )
 from repro_torch.core.sort_config import DEFAULT_CONFIG, SortConfig  # noqa: E402
 from repro_torch.interop import words_from_numpy, words_to_numpy  # noqa: E402
 from repro_torch.kernels import bitonic, merge, ops, radix  # noqa: E402
 
-ROOT = Path(__file__).resolve().parents[1]
 GEOMETRY = dict(tile=256, s=16, direct_max=512)
 STRATEGIES = ["radix", "merge"]
 
@@ -489,13 +489,6 @@ def test_row_sorts_share_one_row_load_store_and_sample_epilogue():
     assert {"radix_sort", "merge_sort"} <= set(_build.SOURCES)
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.parametrize("fuse_ranking", [True, False], ids=["fused", "unfused"])
 @pytest.mark.parametrize("strategy,fuse_sampling", [
     ("radix", True), ("merge", True), ("merge", False), ("bitonic", False)])
@@ -503,20 +496,24 @@ def test_launches_on_the_cpu_equal_chip_smokes_plan_walk(
         monkeypatch, strategy, fuse_sampling, fuse_ranking):
     """A CPU rehearsal of chip_smoke's launch counts: each dispatcher call
     is one launch on the card; the calls a sort and a top-k make must be
-    the ones chip_smoke derives from their plans."""
-    smoke = _chip_smoke()
+    the plan's walk (``plan.kernel_launches`` / ``topk_launches``, which
+    chip_smoke.py and the cost model count)."""
     calls = []
 
     def wrap(name, record):
         real = getattr(ops, name)
 
         def spy(*args, **kw):
+            # The kernels take contiguous rows only (the plain versions
+            # take any): what the card would be handed.
+            tensors = [t for a in args[:2] for t in (a if isinstance(a, tuple) else (a,))]
+            assert all(t.is_contiguous() for t in tensors), name
             calls.append(record(*args, **kw))
             return real(*args, **kw)
         monkeypatch.setattr(ops, name, spy)
 
     def sorter(kw):
-        return smoke.SORTERS[kw.get("strategy", "bitonic")]
+        return SORTERS[kw.get("strategy", "bitonic")]
 
     wrap("sort_tiles", lambda k, v, **kw: (sorter(kw), *v.shape, 0))
     wrap("sort_tiles_sample",
@@ -525,17 +522,19 @@ def test_launches_on_the_cpu_equal_chip_smokes_plan_walk(
         wrap(name, lambda k, v, sk, sv, _n=name: (_n, *v.shape, sv.shape[1]))
     cfg = SortConfig(**GEOMETRY, strategy=strategy, fuse_sampling=fuse_sampling,
                      fuse_ranking=fuse_ranking)
-    x = torch.randint(-99, 99, (3, 20_000), dtype=torch.int32)
-    bucket_sort.sort_batched(x, cfg, device="cpu")
-    plan = build_plan(20_000, torch.int32, cfg, rows=3)
-    assert calls == smoke.kernel_launches(plan.root, [])
-    assert {c[0] for c in calls} >= {smoke.SORTERS[strategy]}
-    calls.clear()
+    # At 8192 keys a row's samples fill the direct level unpadded.
+    for length in (8192, 20_000):
+        x = torch.randint(-99, 99, (3, length), dtype=torch.int32)
+        bucket_sort.sort_batched(x, cfg, device="cpu")
+        plan = build_plan(length, torch.int32, cfg, rows=3)
+        assert calls == kernel_launches(plan.root)
+        assert {c[0] for c in calls} >= {SORTERS[strategy]}
+        calls.clear()
     monkeypatch.setattr(bitonic, "MAX_TILE", 512)  # the wide-row route too
     partial_sort.topk_batched(x.float(), 50, cfg, device="cpu")
     tplan = build_topk_plan(20_000, 50, torch.float32, cfg, rows=3)
     assert tplan.sample_plan is not None
-    assert calls == smoke.topk_launches(tplan)
+    assert calls == topk_launches(tplan)
 
 
 # ----------------------------------------------------------------------
