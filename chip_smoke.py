@@ -79,14 +79,35 @@ K5 radix sort, K6 merge sort) and then
      no measurement and the same plan object, a ``save_plan`` /
      ``plan=<path>`` round trip, no library sort in any of them, and the
      time and peak memory of the winner beside the default plan's;
+   - distributed: ``make_sharded_sort`` over D in {2, 4} rank processes
+     sharing this card in one gloo group (met through a ``FileStore``,
+     with a finite timeout and a deadline on the join; gloo takes the
+     CUDA tensors and copies them through host memory, which
+     ``gloo_cuda_probe`` confirms first): 2^26 int32 keys over D = 4 and
+     D = 2, 2^24 int64 over D = 4, 2^24 float32 descending with NaN /
+     +-inf / -0.0 over D = 2.  Each run is gathered here and held
+     against stable ``torch.sort`` on the card (the ranks' valid prefixes
+     in rank order, the payloads its permutation, counts summing to n,
+     max_within below c_pair, every rank's launches the ShardPlan's walk)
+     and timed: the last rank's wall (median of 3 after the counted run),
+     per-phase ms from CUDA events (the max over ranks), the exchange
+     bytes and peak memory of a rank, beside the single-process ``sort``
+     of the same keys.  Then ``collective.exchange`` armed on rank 1
+     only, once (every rank logs a retry, the result is right) and at
+     every hit (every rank raises a ``SortRuntimeError``), and
+     ``SortConfig(plan="autotune")`` at 2^24 int32 over D = 2 against a
+     fresh store (the candidates measured, the winner, the same on every
+     rank, a warm call, a plan file).  These are ranks sharing one card,
+     not a multi-GPU result;
    every run of these paths has its kernel launches counted, and they
    must be those its plan calls for;
-5. prints a JSON line of per-kernel numbers (a kernel's and its library
-   call's ``ms``, one call between two events, the host's time to launch
-   it included; ``device_ms`` and ``library_device_ms``, the device's time
-   per launch over 20 launches that it runs back to back; the radix_sort
-   row also K5's digit width, ``digit_bits``; ``launches`` over every
-   counted run), the card's name and power limit, and last
+5. prints the script's wall time, then a JSON line of per-kernel numbers
+   (a kernel's and its library call's ``ms``, one call between two
+   events, the host's time to launch it included; ``device_ms`` and
+   ``library_device_ms``, the device's time per launch over 20 launches
+   that it runs back to back; the radix_sort row also K5's digit width,
+   ``digit_bits``; ``launches`` over every counted run), the card's name
+   and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line;
@@ -1480,7 +1501,397 @@ def autotune_phase(rng, totals):
         autotune.clear_memo()
 
 
+# ----------------------------------------------------------------------
+# The distributed sort: D rank processes on this one card, one gloo group
+# ----------------------------------------------------------------------
+
+# (name, log2 n, dtype, ranks, descending): 2^26 is the largest power of
+# two under the payload budget n * 16 < 2^31.
+DIST_CASES = (
+    ("sort int32 2^26 over D=4", 26, "int32", 4, False),
+    ("sort int64 2^24 over D=4", 24, "int64", 4, False),
+    ("sort int32 2^26 over D=2", 26, "int32", 2, False),
+    ("sort float32 2^24 descending over D=2, NaN/+-inf/-0.0", 24, "float32", 2,
+     True),
+)
+DIST_FAULT_N = 1 << 22
+DIST_TUNE_N = 1 << 24
+
+
+class PhaseEvents:
+    """The ``phase`` hook of the distributed sort: CUDA events around each
+    phase on the rank's stream, summed by phase name (the device timeline
+    between them, idle gaps included)."""
+
+    def __init__(self):
+        self.spans = []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        try:
+            yield
+        finally:
+            b.record()
+            self.spans.append((name, a, b))
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        out = collections.defaultdict(float)
+        for name, a, b in self.spans:
+            out[name] += a.elapsed_time(b)
+        return dict(out)
+
+
+def gloo_cuda_probe(group) -> dict:
+    """Whether gloo's collectives take CUDA tensors as they are, which the
+    distributed sort relies on: tried on a few elements, on every rank
+    alike."""
+    import torch.distributed as dist
+
+    d = dist.get_world_size(group)
+    out = {}
+    x = torch.arange(4 * d, dtype=torch.int32, device="cuda")
+    for name, fn in (
+        ("all_to_all_single", lambda: dist.all_to_all_single(
+            torch.empty_like(x), x, group=group)),
+        ("all_gather", lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(d)], x, group=group)),
+        ("all_reduce", lambda: dist.all_reduce(x.clone(), group=group)),
+    ):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "takes CUDA tensors"
+        except Exception as e:  # a refusal is the answer sought
+            out[name] = f"refused: {type(e).__name__}: {str(e)[:120]}"
+    return out
+
+
+def _dist_case(rank, world, case, reps=3):
+    """One case on this rank: a counted run (counts set to 0 just before,
+    read just after), then ``reps`` timed runs, each started from a
+    barrier."""
+    import torch.distributed as dist
+
+    from repro_torch.core import SortConfig, distributed_sort
+    from repro_torch.core.plan import plan_launches
+    from repro_torch.kernels import ops
+
+    x = np.load(case["path"], mmap_mode="r")
+    n = x.shape[0]
+    nl = n // world
+    shard = torch.from_numpy(np.array(x[rank * nl:(rank + 1) * nl])).cuda()
+    run, plan = distributed_sort.make_sharded_sort(
+        None, n, SortConfig(descending=case["desc"]), dtype=shard.dtype)
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    k, v, c, mw = run(shard)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    count = int(c)
+    out = dict(keys=k[:count].cpu(), vals=v[:count].cpu(), count=count,
+               max_within=int(mw), c_pair=plan.c_pair, out_cap=plan.out_cap,
+               launches=counts, plan_launches=dict(plan_launches(plan)),
+               peak_bytes_above_shard=peak,
+               exchange_bytes=plan.exchange_elements * plan.bytes_per_element,
+               collective_bytes=plan.collective_elements * plan.bytes_per_element,
+               route=f"{dist.get_backend()} with {shard.device.type} tensors",
+               walls=[], phases=[])
+    del k, v
+    for _ in range(reps):
+        events = PhaseEvents()
+        dist.barrier()
+        t0 = time.perf_counter()
+        run(shard, phase=events)
+        torch.cuda.synchronize()
+        out["walls"].append(time.perf_counter() - t0)
+        out["phases"].append(events.ms())
+    return out
+
+
+def _dist_faults(rank, world, path):
+    """collective.exchange armed on rank 1 only: once (every rank retries,
+    the result stands), then at every hit (every rank raises)."""
+    from repro_torch.core import distributed_sort, faults, guard
+
+    x = torch.from_numpy(np.load(path))
+    nl = x.shape[0] // world
+    shard = x[rank * nl:(rank + 1) * nl].cuda()
+    run, _ = distributed_sort.make_sharded_sort(None, x.shape[0])
+    out = {}
+    with warnings.catch_warnings(), library_sorts([]) as calls:
+        warnings.simplefilter("ignore", guard.DegradationWarning)
+        for label, count in (("once", 1), ("always", 10**6)):
+            guard.clear_degradation_log()
+            arm = (faults.inject("collective.exchange", on_hit=1, count=count)
+                   if rank == 1 else contextlib.nullcontext())
+            res = dict(error=None)
+            try:
+                with arm:
+                    k, v, c, _ = run(shard)
+                res.update(keys=k[:int(c)].cpu(), vals=v[:int(c)].cpu())
+            except guard.SortRuntimeError as e:
+                res["error"] = dict(site=e.site, invariant=e.invariant,
+                                    cause=type(e.__cause__).__name__)
+            res["log"] = [ev.action for ev in guard.degradation_log()]
+            res["stats"] = dict(run.last_stats)
+            out[label] = res
+        out["library_sorts"] = list(calls)
+    faults.reset()
+    return out
+
+
+def _dist_autotune(rank, world, path, store):
+    """SortConfig(plan="autotune") against a fresh store: the cold tune,
+    its measured candidates and winner; a warm call; a plan file."""
+    import torch.distributed as dist
+
+    from repro_torch.core import SortConfig, autotune, distributed_sort
+    from repro_torch.core.plan import plan_launches, shard_plan_json
+    from repro_torch.kernels import ops
+
+    os.environ[autotune._CACHE_ENV] = store
+    autotune.clear_memo()
+    x = torch.from_numpy(np.load(path))
+    n = x.shape[0]
+    nl = n // world
+    shard = x[rank * nl:(rank + 1) * nl].cuda()
+    measured = []
+    real = autotune._measure_shard_candidate
+
+    def spy(run, xs, label, comm, **kw):
+        us, err = real(run, xs, label, comm, **kw)
+        measured.append(dict(label=label, us=us, error=err))
+        return us, err
+
+    autotune._measure_shard_candidate = spy
+    cfg = SortConfig(plan="autotune")
+    try:
+        t0 = time.perf_counter()
+        run, plan = distributed_sort.make_sharded_sort(
+            None, n, cfg, dtype=shard.dtype, device=shard.device)
+        cold_s = time.perf_counter() - t0
+        n_cold = len(measured)
+        run2, warm = distributed_sort.make_sharded_sort(
+            None, n, cfg, dtype=shard.dtype, device=shard.device)
+        ops.reset_launch_counts()
+        k, v, c, _ = run2(shard)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        with open(store) as f:
+            label = next(r["label"] for key, r in json.load(f)["plans"].items()
+                         if key.startswith("shard|"))
+        file = os.path.join(os.path.dirname(store), "shard_plan.json")
+        if rank == 0:
+            autotune.save_shard_plan(plan, file)
+        dist.barrier()
+        run3, filed = distributed_sort.make_sharded_sort(
+            None, n, SortConfig(plan=file), dtype=shard.dtype)
+        k3, v3, c3, _ = run3(shard)
+    finally:
+        autotune._measure_shard_candidate = real
+        autotune.clear_memo()
+    return dict(
+        cold_s=cold_s, measured=measured[:n_cold],
+        warm_measurements=len(measured) - n_cold, winner=label,
+        plan=shard_plan_json(plan), warm_same=warm is plan,
+        file_equal=filed == plan, launches=counts,
+        plan_launches=dict(plan_launches(plan)),
+        keys=k[:int(c)].cpu(), vals=v[:int(c)].cpu(),
+        file_keys=k3[:int(c3)].cpu(), file_vals=v3[:int(c3)].cpu())
+
+
+def dist_rank(rank, world, spec):
+    """One rank process of the distributed phase, on cuda:0."""
+    torch.cuda.set_device(0)
+    out = {"probe": gloo_cuda_probe(None) if spec.get("probe") else None}
+    out["cases"] = [_dist_case(rank, world, case) for case in spec["cases"]]
+    if spec.get("fault_path"):
+        out["faults"] = _dist_faults(rank, world, spec["fault_path"])
+    if spec.get("tune_path"):
+        out["autotune"] = _dist_autotune(rank, world, spec["tune_path"],
+                                         spec["store"])
+    return out
+
+
+def _stable(x: torch.Tensor, descending: bool):
+    """Stable torch.sort of x in the codec's total order (NaN last
+    ascending, -0.0 before 0.0): sort the order-preserving int64 image."""
+    from repro_torch.core.key_codec import codec_for
+
+    words = codec_for(x.dtype, descending).encode(x)
+    key = words[0].long()  # biased int32 words: signed order is the order
+    if len(words) == 2:
+        key = key * 2**32 + (words[1].long() + 2**31)
+    idx = torch.sort(key, stable=True).indices
+    return x[idx], idx
+
+
+def _check_gathered(name, x, parts, descending):
+    """The ranks' valid prefixes, in rank order, against stable torch.sort
+    of the whole array on the card."""
+    keys = torch.cat([p["keys"] for p in parts]).cuda()
+    vals = torch.cat([p["vals"] for p in parts]).cuda()
+    want_k, want_i = _stable(x, descending)
+    same = (keys.view(torch.uint8).equal(want_k.view(torch.uint8))
+            and torch.equal(vals.long(), want_i))
+    if not same:
+        raise AssertionError(f"{name}: differs from stable torch.sort")
+
+
+def distributed_phase(rng, totals):
+    """The distributed sort over D in {2, 4} rank processes sharing this
+    card, one gloo group (gloo copies CUDA tensors through host memory): every
+    case checked in this process against stable torch.sort on the card,
+    its launches held to the ShardPlan's walk on every rank, timed (the
+    last rank's wall, per-phase ms, max over ranks), beside the
+    single-process sort of the same keys; then the fault chain and
+    plan="autotune" over D=2.  These are D ranks on one card, not a
+    multi-GPU result."""
+    from repro_torch.core import SortConfig, bucket_sort, distributed_sort
+    from repro_torch.launch.mesh import run_ranks
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = {}
+        for i, (name, log2n, dtype, d, desc) in enumerate(DIST_CASES):
+            n = 1 << log2n
+            if dtype == "float32":
+                x = (rng.standard_normal(n) * 1e6).astype(np.float32)
+                x[rng.integers(0, n, 8)] = [np.nan, np.inf, -np.inf, -0.0, 0.0,
+                                            np.nan, 1.5, -1.5]
+            else:
+                info = np.iinfo(dtype)
+                x = rng.integers(info.min, info.max, n, dtype=dtype)
+            path = os.path.join(tmp, f"case{i}.npy")
+            np.save(path, x)
+            inputs[i] = dict(path=path, desc=desc, name=name, d=d)
+        fault_path = os.path.join(tmp, "faults.npy")
+        xf = rng.integers(-(2**31), 2**31, DIST_FAULT_N, dtype=np.int32)
+        np.save(fault_path, xf)
+        tune_path = os.path.join(tmp, "tune.npy")
+        xt = rng.integers(-(2**31), 2**31, DIST_TUNE_N, dtype=np.int32)
+        np.save(tune_path, xt)
+        results = {}
+        for d in (4, 2):
+            spec = dict(cases=[c for c in inputs.values() if c["d"] == d])
+            if d == 2:
+                spec.update(probe=True, fault_path=fault_path,
+                            tune_path=tune_path,
+                            store=os.path.join(tmp, "store", "plans.json"))
+            t0 = time.perf_counter()
+            results[d] = run_ranks(dist_rank, d, spec, timeout_s=300,
+                                   deadline_s=900)
+            print(f"distributed D={d}: {d} rank processes ran in "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+        for d, ranks in results.items():
+            cases = [c for c in inputs.values() if c["d"] == d]
+            for j, case in enumerate(cases):
+                parts = [r["cases"][j] for r in ranks]
+                x = torch.from_numpy(np.load(case["path"])).cuda()
+                _check_gathered(case["name"], x, parts, case["desc"])
+                for p in parts:
+                    if p["max_within"] >= p["c_pair"]:
+                        raise AssertionError(f"{case['name']}: max_within "
+                                             f"{p['max_within']} >= c_pair")
+                    expect_launches(case["name"], p["launches"],
+                                    p["plan_launches"])
+                    for k_, c_ in p["launches"].items():
+                        totals[k_] += c_
+                if sum(p["count"] for p in parts) != x.numel():
+                    raise AssertionError(f"{case['name']}: counts do not sum to n")
+                cfg = SortConfig(descending=case["desc"])
+                single_ms = time_ms(
+                    lambda: bucket_sort.sort(x, cfg, device=x.device), 3)
+                torch_ms = time_ms(lambda: torch.sort(x, stable=True,
+                                                      descending=case["desc"]), 3)
+                walls = [max(p["walls"][i] for p in parts) for i in range(3)]
+                phases = {name: max(statistics.median(ph[name] for ph in p["phases"])
+                                    for p in parts)
+                          for name in distributed_sort.PHASES}
+                print(json.dumps({
+                    "distributed": case["name"], "d": d, "n": x.numel(),
+                    "equal": True, "route": parts[0]["route"],
+                    "wall_ms": statistics.median(walls) * 1e3,
+                    "phase_ms_max_over_ranks": phases,
+                    "exchange_bytes_per_rank": parts[0]["exchange_bytes"],
+                    "collective_bytes_per_rank": parts[0]["collective_bytes"],
+                    "peak_bytes_above_shard": [p["peak_bytes_above_shard"]
+                                               for p in parts],
+                    "counts": [p["count"] for p in parts],
+                    "max_within": [p["max_within"] for p in parts],
+                    "c_pair": parts[0]["c_pair"],
+                    "launches_per_rank": {k_: c_ for k_, c_ in
+                                          parts[0]["launches"].items() if c_},
+                    "single_process_sort_ms": single_ms,
+                    "torch_sort_ms": torch_ms,
+                }))
+                del x
+
+        ranks = results[2]
+        print(json.dumps({"gloo_cuda_probe": ranks[0]["probe"]}))
+        tl = [r["autotune"] for r in ranks]
+        xt_t = torch.from_numpy(xt).cuda()
+        _check_gathered("autotune", xt_t, tl, False)
+        _check_gathered("autotune plan file", xt_t,
+                        [dict(keys=t["file_keys"], vals=t["file_vals"])
+                         for t in tl], False)
+        for t in tl:
+            expect_launches("autotune", t["launches"], t["plan_launches"])
+            for k_, c_ in t["launches"].items():
+                totals[k_] += c_
+        print(json.dumps({
+            "distributed_autotune": "sort int32 2^24 over D=2 plan=autotune",
+            "cold_s": [t["cold_s"] for t in tl],
+            "measured": tl[0]["measured"], "winner": tl[0]["winner"],
+            "same_plan_on_every_rank": len({t["plan"] for t in tl}) == 1,
+            "same_measured_on_every_rank": len({json.dumps(t["measured"])
+                                                for t in tl}) == 1,
+            "warm_measurements": [t["warm_measurements"] for t in tl],
+            "warm_same_plan": [t["warm_same"] for t in tl],
+            "plan_file_equal_plan": [t["file_equal"] for t in tl],
+            "equal": True,
+        }))
+        if len({t["plan"] for t in tl}) != 1 or any(
+                t["warm_measurements"] or not t["warm_same"] or not t["file_equal"]
+                for t in tl):
+            raise AssertionError("distributed autotune: ranks disagree, or a "
+                                 "warm call measured, or the file differs")
+        xf_t = torch.from_numpy(xf).cuda()
+        fl = [r["faults"] for r in ranks]
+        _check_gathered("fault once", xf_t, [f["once"] for f in fl], False)
+        line = {"distributed_faults": "sort int32 2^22 over D=2, "
+                "collective.exchange on rank 1 only",
+                "once": {"log": [f["once"]["log"] for f in fl],
+                         "stats": [f["once"]["stats"] for f in fl],
+                         "equal": True},
+                "always": {"errors": [f["always"]["error"] for f in fl],
+                           "log": [f["always"]["log"] for f in fl]},
+                "library_sorts": sum(len(f["library_sorts"]) for f in fl)}
+        print(json.dumps(line))
+        for f in fl:
+            if f["once"]["log"] != ["retry"] or f["always"]["log"] != ["retry"]:
+                raise AssertionError("distributed faults: every rank must log "
+                                     "one retry")
+            err = f["always"]["error"]
+            if err is None or not err["site"].startswith(
+                    "collective.exchange[D=2]:ShardPlan("):
+                raise AssertionError("distributed faults: the double fault did "
+                                     "not raise a SortRuntimeError on every rank")
+        if line["library_sorts"]:
+            raise AssertionError("distributed faults: a library sort ran")
+
+
 def main() -> int:
+    start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--memory", action="store_true",
@@ -1566,9 +1977,11 @@ def main() -> int:
     faults_phase(totals)
     comparison_phase(rng, totals)
     autotune_phase(rng, totals)
+    distributed_phase(rng, totals)
 
     rows = [kernel_row(*entry, gen, totals[entry[0]])
             for entry in kernel_table()]
+    print(json.dumps({"script_wall_s": time.perf_counter() - start}))
     print(json.dumps({"kernels": rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

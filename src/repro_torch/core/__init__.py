@@ -20,6 +20,12 @@ from repro_torch.core.bucket_sort import (
     sort_planned,
     sort_with_stats,
 )
+from repro_torch.core.distributed_sort import (
+    DistSortSpec,
+    make_sharded_sort,
+    shard_runner,
+    sorted_shard,
+)
 from repro_torch.core.faults import FaultInjected
 from repro_torch.core.guard import (
     CHECK_MODES,
@@ -34,12 +40,16 @@ from repro_torch.core.partial_sort import topk, topk_batched
 from repro_torch.core.probe import priors_for, probed_config, recommend_strategy
 from repro_torch.core.plan import (
     LevelPlan,
+    ShardGeometry,
+    ShardPlan,
     SortPlan,
     TopkPlan,
     build_plan,
+    build_shard_plan,
     build_topk_plan,
     build_words_plan,
     config_fingerprint,
+    shard_geometry,
 )
 from repro_torch.core.sort_config import DEFAULT_CONFIG, PAPER_CONFIG, SortConfig
 
@@ -60,6 +70,10 @@ __all__ = [
     "sort_with_stats",
     "topk",
     "topk_batched",
+    "DistSortSpec",
+    "make_sharded_sort",
+    "shard_runner",
+    "sorted_shard",
     "CHECK_MODES",
     "DegradationEvent",
     "DegradationWarning",
@@ -71,12 +85,16 @@ __all__ = [
     "SUPPORTED_DTYPES",
     "codec_for",
     "LevelPlan",
+    "ShardGeometry",
+    "ShardPlan",
     "SortPlan",
     "TopkPlan",
     "build_plan",
+    "build_shard_plan",
     "build_topk_plan",
     "build_words_plan",
     "config_fingerprint",
+    "shard_geometry",
     "priors_for",
     "probed_config",
     "recommend_strategy",

@@ -35,6 +35,17 @@ two candidates.
 ``SortConfig(plan="autotune")`` routes the sort entry points through
 :func:`plan_for`; ``SortConfig(plan=<path>)`` reads a file written by
 :func:`save_plan` (``bucket_sort.resolve_plan``).
+
+The distributed half (:func:`shard_plan_for`, :func:`autotune_shard`)
+tunes a :class:`~repro_torch.core.plan.ShardPlan` over the ranks of a
+process group: every rank times every candidate (each one a run of the
+distributed sort, so all ranks issue the same collectives), the times
+are reduced (MAX) over the group, so every rank picks the same winner,
+and a failed measurement is agreed on before anyone retries.  Rank 0
+alone reads and writes the store and hands the others what it found.
+Shard records share the store under ``shard|`` keys, which hold the
+device and the group's backend: a plan tuned through gloo on one card
+is never served to an NCCL group.
 """
 
 from __future__ import annotations
@@ -48,14 +59,19 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import bucket_sort, cost_model, faults, guard
 from repro_torch.core.key_codec import codec_for
 from repro_torch.core.plan import (
+    ShardPlan,
     SortPlan,
     build_plan,
+    build_shard_plan,
     plan_from_dict,
     plan_to_dict,
+    shard_plan_from_dict,
+    shard_plan_to_dict,
 )
 from repro_torch.core.sort_config import SortConfig, next_pow2
 from repro_torch.kernels import bitonic
@@ -404,6 +420,11 @@ def _measure(fn, x: torch.Tensor, *, repeats: int, warmup: int = 1) -> float:
     card each call ends in ``torch.cuda.synchronize()``.  Checks the
     ``autotune.measure`` fault site once."""
     faults.check("autotune.measure")
+    return _time_calls(fn, x, repeats=repeats, warmup=warmup)
+
+
+def _time_calls(fn, x: torch.Tensor, *, repeats: int, warmup: int) -> float:
+    """Median wall microseconds of ``fn(x)`` after ``warmup`` calls."""
 
     def call():
         fn(x)
@@ -696,7 +717,401 @@ def plan_for(length: int, dtype, cfg: SortConfig, *, rows: int = 1,
     return result.best_plan
 
 
+# ----------------------------------------------------------------------
+# The distributed half: ShardPlans over the ranks of a process group
+# ----------------------------------------------------------------------
+
+# Process-local memo of tuned shard plans (the role of _MEMO).
+_SHARD_MEMO: dict[str, ShardPlan] = {}
+
+
+def shard_cache_key(plan: ShardPlan, device, backend: str) -> str:
+    """The store key of a distributed signature: ``shard|`` and the plan's
+    axis, d, n_local, dtype, order, oversample and pair_align, then the
+    device (:func:`device_identity`), the group's backend and the config's
+    fingerprint."""
+    sig = plan.signature()
+    return "shard|" + "|".join(str(x) for x in (
+        *sig[:-1], device_identity(device), backend, sig[-1]))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCandidate:
+    """One point of the distributed search space."""
+
+    cfg: SortConfig
+    oversample: int
+    pair_align: int
+    label: str
+
+
+def shard_candidate_space(cfg: SortConfig, *, oversample: int = 8,
+                          pair_align: int = 8,
+                          max_trials: int = 8) -> list[ShardCandidate]:
+    """Deterministic, ordered distributed candidates, the JAX package's
+    order and labels: the base (the requested config, oversample and
+    pair_align) first, then the other local-sort strategies, oversample
+    x2, /2, x4, then pair_align 128 and 256; deduplicated, truncated to
+    ``max_trials``."""
+    seen: set[tuple] = set()
+    out: list[ShardCandidate] = []
+
+    def _add(label: str, *, strategy=None, osamp=None, palign=None):
+        if len(out) >= max_trials:
+            return
+        o = oversample if osamp is None else osamp
+        pa = pair_align if palign is None else palign
+        if o < 1 or o & (o - 1) or pa < 8 or pa & (pa - 1):
+            return
+        try:
+            cand_cfg = dataclasses.replace(
+                cfg, plan="default", **({"strategy": strategy} if strategy else {}))
+        except ValueError:
+            return
+        key = (cand_cfg, o, pa)
+        if key in seen:
+            return
+        seen.add(key)
+        out.append(ShardCandidate(cfg=cand_cfg, oversample=o, pair_align=pa,
+                                  label=label))
+
+    _add("base")
+    for st in ("bitonic", "radix", "merge"):
+        if st != cfg.strategy:
+            _add(f"strategy={st}", strategy=st)
+    for o in (oversample * 2, max(oversample // 2, 1), oversample * 4):
+        _add(f"oversample={o}", osamp=o)
+    for pa in (128, 256):
+        _add(f"pair_align={pa}", palign=pa)
+    return out
+
+
+def _measure_shard_candidate(run, x, label: str, comm, *, repeats: int,
+                             warmup: int) -> tuple[float | None, str | None]:
+    """One distributed candidate's measurement on every rank: the
+    ``autotune.measure`` fault site agreed on before any run (so all ranks
+    retry together), bounded retries, then the slowest rank's median, or
+    (None, error) on every rank when a rank failed."""
+
+    def attempt():
+        err = None
+        try:
+            faults.check("autotune.measure")
+        except faults.FaultInjected as e:
+            err = e
+        if comm.any_failed(err is not None):
+            raise err or guard.SortRuntimeError(
+                "autotune.measure", "every rank measures",
+                "failed on another rank")
+        return _time_calls(run, x, repeats=repeats, warmup=warmup)
+
+    us, err = math.inf, None
+    try:
+        us = guard.with_retries(attempt, site=f"autotune.measure[{label}]",
+                                attempts=_MEASURE_ATTEMPTS,
+                                base_delay=_MEASURE_BASE_DELAY)
+    except Exception as e:  # terminal after the retries: report, denylist
+        err = f"{type(e).__name__}: {e}"
+    us = comm.max(us)
+    if math.isinf(us):
+        err = err or "failed on another rank"
+        warnings.warn(
+            f"distributed autotune candidate {label!r} failed to measure "
+            f"after {_MEASURE_ATTEMPTS} attempts ({err}); excluded from this "
+            f"run and denylisted for the signature",
+            guard.DegradationWarning, stacklevel=2)
+        return None, err
+    return us, None
+
+
+def autotune_shard(group, axis, n_global: int, dtype, cfg: SortConfig, *,
+                   device=None, oversample: int = 8, pair_align: int = 8,
+                   max_trials: int = 8, repeats: int = 2, warmup: int = 1,
+                   seed: int = 0, measure_budget: int | None = 5,
+                   priors: cost_model.Priors | None = None,
+                   seed_candidates: tuple[ShardCandidate, ...] = (),
+                   denylist: frozenset[str] = frozenset()) -> AutotuneResult:
+    """Score every distributed candidate's ShardPlan with the cost model
+    (its collective bytes included), time the ``measure_budget`` cheapest
+    (the base always among them) with the distributed sort over
+    ``group`` on seeded data on ``device`` (None = "cuda"), and return the
+    measured winner, the same on every rank.
+
+    Every rank of the group must call it with the same arguments.  Each
+    rank takes its shard of one seeded global array; a candidate's time
+    is the slowest rank's median.
+
+    Raises:
+        guard.SortRuntimeError: when no candidate measures.
+    """
+    from repro_torch.core import distributed_sort
+
+    _validate_budget(measure_budget)
+    dev = resolve_device(device)
+    axt = (axis,) if isinstance(axis, str) else tuple(axis)
+    comm = distributed_sort._Comm(group, dev)
+    d, me = comm.d, comm.me
+    n_loc = n_global // d
+    x = _sample_input(n_global, dtype, 1, seed)[me * n_loc:(me + 1) * n_loc].to(dev)
+
+    space = shard_candidate_space(cfg, oversample=oversample,
+                                  pair_align=pair_align, max_trials=max_trials)
+    mandatory = [0]
+    seen = {(c.cfg, c.oversample, c.pair_align) for c in space}
+    for sc in seed_candidates:
+        k = (sc.cfg, sc.oversample, sc.pair_align)
+        if k in seen:
+            mandatory.append(next(i for i, c in enumerate(space)
+                                  if (c.cfg, c.oversample, c.pair_align) == k))
+            continue
+        seen.add(k)
+        space.append(sc)
+        mandatory.append(len(space) - 1)
+
+    plans: list[ShardPlan | None] = []
+    predicted: list[float] = []
+    for cand in space:
+        try:
+            plan = build_shard_plan(axt, d, n_loc, dtype, cand.cfg,
+                                    oversample=cand.oversample,
+                                    pair_align=cand.pair_align)
+        except ValueError:  # a sub-plan level that cannot shrink (D2)
+            plans.append(None)
+            predicted.append(math.inf)
+            continue
+        plans.append(plan)
+        predicted.append(cost_model.estimate(plan, priors=priors).total)
+
+    measured = set(_select_measured(predicted, measure_budget, mandatory))
+    measured -= {i for i in measured if plans[i] is None or (
+        math.isinf(predicted[i]) and i not in mandatory)}
+    skipped = tuple(c.label for i, c in enumerate(space)
+                    if i in measured and c.label in denylist)
+    measured -= {i for i, c in enumerate(space) if c.label in denylist}
+    trials: list[TrialResult] = []
+    scores: list[CandidateScore] = []
+    failed: list[tuple[str, str]] = []
+    best_plan, best_label = None, ""
+    best_us, default_us = math.inf, math.inf
+    for i, cand in enumerate(space):
+        us = None
+        if i in measured:
+            us, err = _measure_shard_candidate(
+                distributed_sort.shard_runner(plans[i], group), x, cand.label,
+                comm, repeats=repeats, warmup=warmup)
+            if err is not None:
+                failed.append((cand.label, err))
+        scores.append(CandidateScore(index=i, label=cand.label,
+                                     predicted=predicted[i], us_per_call=us))
+        if us is None:
+            continue
+        trials.append(TrialResult(label=cand.label, us_per_call=us))
+        if i == 0:
+            default_us = us
+        if us < best_us:
+            best_plan, best_label, best_us = plans[i], cand.label, us
+    if best_plan is None:
+        raise guard.SortRuntimeError(
+            "autotune.measure", "at least one candidate measured",
+            f"all {len(measured)} measured distributed candidate(s) failed "
+            f"({len(skipped)} denylisted) for n_global={n_global} D={d}")
+    return AutotuneResult(
+        best_plan=best_plan, best_label=best_label, best_us=best_us,
+        default_us=default_us, trials=tuple(trials), candidates=tuple(scores),
+        measure_budget=measure_budget, failed=tuple(failed), skipped=skipped,
+    )
+
+
+def _nearest_shard_record(store: dict, base: ShardPlan, key: str,
+                          device_id: str,
+                          backend: str) -> tuple[ShardPlan, str] | None:
+    """The stored distributed winner nearest ``base``: the same dtype,
+    order, device and backend, then the same config fingerprint first,
+    the nearest log2 shard length, the nearest log2 d (ties on the key)."""
+    want = (base.dtype_name, str(base.descending), device_id, backend)
+    best = None
+    for k, rec in store["plans"].items():
+        if k == key or not k.startswith("shard|") or not _record_is_current(rec):
+            continue
+        parts = k.split("|")[1:]
+        if len(parts) != 10 or (parts[3], parts[4], parts[7], parts[8]) != want:
+            continue
+        try:
+            d_k, n_local_k = int(parts[1]), int(parts[2])
+            plan = shard_plan_from_dict(rec["plan"])
+        except (ValueError, TypeError, KeyError):
+            continue
+        dist_k = (
+            0 if parts[9] == base.cfg_fingerprint else 1,
+            abs(np.log2(max(n_local_k, 1)) - np.log2(max(base.n_local, 1))),
+            abs(np.log2(max(d_k, 1)) - np.log2(max(base.d, 1))),
+            k,
+        )
+        if best is None or dist_k < best[0]:
+            best = (dist_k, plan, k)
+    return (best[1], best[2]) if best else None
+
+
+def _shard_seed_from_record(plan: ShardPlan,
+                            cfg: SortConfig) -> ShardCandidate | None:
+    """Transfer seed: a stored winner's oversample and pair_align and its
+    run-phase local sort, over the requesting ``cfg``."""
+    node = plan.run_plan.root
+    try:
+        seed_cfg = dataclasses.replace(
+            cfg, plan="default", strategy=node.strategy,
+            radix_bits=node.radix_bits, merge_run=node.merge_run)
+    except ValueError:
+        return None
+    return ShardCandidate(cfg=seed_cfg, oversample=plan.oversample,
+                          pair_align=plan.pair_align, label="transfer")
+
+
+def _shard_lookup(key: str, base: ShardPlan, cfg: SortConfig, path: str,
+                  transfer: bool, measure_budget: int | None, device_id: str,
+                  backend: str) -> dict:
+    """Rank 0's reading of the memo and the store: the plan on a hit,
+    else what a tuning run needs (seeds, budget, denylist)."""
+    if key in _SHARD_MEMO:
+        return {"plan": _SHARD_MEMO[key]}
+    store = _load_store(path)
+    rec = store["plans"].get(key)
+    if _record_is_current(rec):
+        try:
+            return {"plan": shard_plan_from_dict(rec["plan"])}
+        except (ValueError, KeyError):
+            pass  # an older plan schema: re-tune and overwrite
+    miss = {"plan": None, "store": store, "seeds": (),
+            "budget": measure_budget, "transfer_from": None,
+            "deny": frozenset(store.get("denylist", {}).get(key, {}))}
+    if transfer and measure_budget is not None:
+        near = _nearest_shard_record(store, base, key, device_id, backend)
+        if near is not None:
+            seed = _shard_seed_from_record(near[0], cfg)
+            if seed is not None:
+                miss.update(seeds=(seed,), budget=min(measure_budget, 2),
+                            transfer_from=near[1])
+    return miss
+
+
+def shard_plan_for(group, axis, n_global: int, dtype, cfg: SortConfig, *,
+                   oversample: int = 8, pair_align: int = 8, device=None,
+                   path: str | None = None, max_trials: int = 8,
+                   repeats: int = 2, measure_budget: int | None = 5,
+                   priors: cost_model.Priors | None = None,
+                   transfer: bool = True) -> ShardPlan:
+    """The stored or tuned distributed plan of a signature, the same on
+    every rank of ``group`` (``make_sharded_sort``'s ``plan="autotune"``).
+
+    Every rank must call it with the same arguments.  Rank 0 looks in its
+    memo and the store at ``path`` (default :func:`cache_path`), keyed by
+    :func:`shard_cache_key`, and broadcasts what it found.  On a miss
+    every rank runs :func:`autotune_shard` on ``device`` (None = "cuda"),
+    seeded from the nearest stored distributed winner (at most two
+    measured) when ``transfer``; rank 0 persists the winner, then the
+    group meets at a barrier, so a later lookup finds it.
+    """
+    dev = resolve_device(device)
+    axt = (axis,) if isinstance(axis, str) else tuple(axis)
+    d = dist.get_world_size(group)
+    backend = dist.get_backend(group)
+    base = build_shard_plan(axt, d, n_global // d, dtype, cfg,
+                            oversample=oversample, pair_align=pair_align)
+    key = shard_cache_key(base, dev, backend)
+    first = dist.get_rank(group) == 0
+    path = path or cache_path()
+    found = [None]
+    if first:
+        found[0] = _shard_lookup(key, base, cfg, path, transfer,
+                                 measure_budget, device_identity(dev), backend)
+        store = found[0].pop("store", None)
+    dist.broadcast_object_list(found, src=dist.get_global_rank(group, 0)
+                               if group is not None else 0, group=group)
+    state = found[0]
+    if state["plan"] is not None:
+        # Keep this rank's own object when it is rank 0's plan, so that a
+        # warm call returns the same object on every rank.
+        if _SHARD_MEMO.get(key) != state["plan"]:
+            _SHARD_MEMO[key] = state["plan"]
+        return _SHARD_MEMO[key]
+
+    result = autotune_shard(
+        group, axt, n_global, dtype, cfg, device=dev, oversample=oversample,
+        pair_align=pair_align, max_trials=max_trials, repeats=repeats,
+        measure_budget=state["budget"], priors=priors,
+        seed_candidates=state["seeds"], denylist=state["deny"])
+    if first:
+        if result.failed:
+            store.setdefault("denylist", {}).setdefault(key, {}).update(
+                dict(result.failed))
+        store["plans"][key] = dict(
+            plan=shard_plan_to_dict(result.best_plan),
+            label=result.best_label,
+            best_us=round(result.best_us, 1),
+            default_us=round(result.default_us, 1),
+            speedup=round(result.speedup, 3),
+            cost_model=result.cost_model_version,
+            measure_budget=result.measure_budget,
+            measured=sum(1 for c in result.candidates
+                         if c.us_per_call is not None),
+            candidates=len(result.candidates),
+            **({"transfer_from": state["transfer_from"]}
+               if state["transfer_from"] else {}),
+        )
+        _persist_store(path, store)
+    dist.barrier(group)
+    _SHARD_MEMO[key] = result.best_plan
+    return result.best_plan
+
+
+def save_shard_plan(plan: ShardPlan, path: str, *,
+                    meta: dict | None = None) -> None:
+    """Write one distributed plan to ``path``, the file
+    ``SortConfig(plan=<path>)`` runs through ``make_sharded_sort``."""
+    payload = shard_plan_to_dict(plan)
+    if meta:
+        payload["meta"] = meta
+    _write_json(path, payload)
+
+
+def load_shard_plan(path: str, *, axis=None, d: int | None = None,
+                    n_local: int | None = None, dtype=None,
+                    cfg: SortConfig | None = None) -> ShardPlan:
+    """Read a distributed plan file written by :func:`save_shard_plan`.
+
+    With a call's signature (``d`` given, as ``make_sharded_sort`` passes
+    for ``SortConfig(plan=<path>)``) the file's plan must match its axis,
+    d, shard length, dtype and order.
+
+    Raises:
+        ValueError: for a file that is not a shard-plan record of the port,
+            or a plan built for another signature.
+    """
+    fkey = (path, os.stat(path).st_mtime_ns)
+    plan = _FILE_MEMO.get(fkey)
+    if not isinstance(plan, ShardPlan):
+        with open(path) as f:
+            rec = json.load(f)
+        if not isinstance(rec, dict):
+            raise ValueError(f"shard plan file {path} holds no plan record")
+        rec.pop("meta", None)
+        plan = shard_plan_from_dict(rec)
+        _FILE_MEMO[fkey] = plan
+    if d is not None:
+        axt = (axis,) if isinstance(axis, str) else tuple(axis)
+        want = (axt, d, n_local, codec_for(dtype).dtype_name,
+                cfg.descending if cfg else plan.descending)
+        got = (plan.axis, plan.d, plan.n_local, plan.dtype_name,
+               plan.descending)
+        if want != got:
+            raise ValueError(
+                f"shard plan file {path} was built for (axis, d, n_local, "
+                f"dtype, descending)={got}, call needs {want}")
+    return plan
+
+
 def clear_memo() -> None:
     """Drop the process-local memos (tests use this to force the store)."""
     _MEMO.clear()
+    _SHARD_MEMO.clear()
     _FILE_MEMO.clear()

@@ -5,7 +5,8 @@ Port of the JAX package's ``core/cost_model.py``.  Regular sampling
 makes the cost of a plan a function of its geometry, not of the data:
 bytes moved per pass, compare counts, radix passes, merge levels and
 kernel launches are all closed-form in the plan fields.
-:func:`estimate` walks a ``SortPlan`` or ``TopkPlan`` and returns one
+:func:`estimate` walks a ``SortPlan``, ``TopkPlan`` or ``ShardPlan`` and
+returns one
 number per channel, so the autotuner (``core/autotune.py``) can score
 the whole candidate space and measure only the cheapest few.
 
@@ -33,10 +34,15 @@ card's:
   indices, several passes each, which makes them the bulk of the device
   time (``PERF.md`` §5); they get a weight of their own.
 
+A ``ShardPlan`` (the distributed sort) sums its four local sorts, as
+the reference does, and adds ``collective_bytes``: a rank's deal, sample
+gather and c_pair-padded exchange, the reference's channel, weighted by
+``COLLECTIVE_BYTE_WEIGHT``.  It is 0 for single-device plans.
+
 The unit is HBM byte-equivalents; ``total`` ranks plans and is not a
 time.  ``total = hbm + GLUE_FACTOR*glue + OP_BYTE_EQUIV*ops +
-LAUNCH_BYTE_EQUIV*launches``, its constants fitted on an H100 (see
-below).  :func:`spearman` is the rank correlation the calibration
+LAUNCH_BYTE_EQUIV*launches + COLLECTIVE_BYTE_WEIGHT*collective``, the
+first three constants fitted on an H100 (see below).  :func:`spearman` is the rank correlation the calibration
 reports.
 
 Distribution priors (``probe.priors_for``) shift only the
@@ -52,11 +58,14 @@ import math
 import numpy as np
 
 from repro_torch.core.plan import (
+    SHARD_SUBPLANS,
     SORTERS,
     LevelPlan,
+    ShardPlan,
     SortPlan,
     TopkPlan,
     kernel_launches,
+    shard_launches,
     topk_launches,
 )
 from repro_torch.core.sort_config import next_pow2
@@ -76,6 +85,12 @@ COST_MODEL_VERSION = "torch_cost_model/h100-v1"
 OP_BYTE_EQUIV = 0.1
 GLUE_FACTOR = 8.0
 LAUNCH_BYTE_EQUIV = 0.0
+# Not fitted: one card has no interconnect to fit it on.  An H100 SXM's
+# HBM3 moves 3.35 TB/s, one direction of its NVLink 4 450 GB/s (NVIDIA
+# data sheet), so a byte sent to a peer costs 3.35e12 / 450e9 = 7.44 HBM
+# bytes.  Single-device plans move none, so their totals do not depend
+# on it.
+COLLECTIVE_BYTE_WEIGHT = 3.35e12 / 450e9
 
 # The reference's per-element work constants, unchanged.
 RADIX_PASS_BASE = 3.0
@@ -117,6 +132,8 @@ class CostBreakdown:
         launches: kernel launches of the plan's walk.
         smem_peak_bytes: the most shared memory a CTA of any of the
             plan's row sorts takes (rows the card can sort).
+        collective_bytes: bytes one rank moves through collectives (a
+            ShardPlan's; 0 for the others).
         total: the score the autotuner ranks by, in byte-equivalents;
             ``inf`` for a plan the card cannot run.
     """
@@ -127,9 +144,15 @@ class CostBreakdown:
     launches: int
     smem_peak_bytes: int
     total: float
+    collective_bytes: float = 0.0
 
     def as_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        """The channels and the total; ``collective_bytes`` only for a
+        plan that moves bytes between ranks (a ShardPlan's)."""
+        d = dataclasses.asdict(self)
+        if not self.collective_bytes:
+            del d["collective_bytes"]
+        return d
 
 
 def _log2(x: int) -> int:
@@ -233,13 +256,15 @@ def _smem_peak(launches: list, nw: int) -> tuple[int, bool]:
 
 
 def _finish(hbm: float, ops: float, glue: float, launches: list,
-            nw: int) -> CostBreakdown:
+            nw: int, coll: float = 0.0) -> CostBreakdown:
     smem, runnable = _smem_peak(launches, nw)
     total = (hbm + GLUE_FACTOR * glue + OP_BYTE_EQUIV * ops
-             + LAUNCH_BYTE_EQUIV * len(launches))
+             + LAUNCH_BYTE_EQUIV * len(launches)
+             + COLLECTIVE_BYTE_WEIGHT * coll)
     return CostBreakdown(
         hbm_bytes=hbm, op_units=ops, glue_bytes=glue, launches=len(launches),
         smem_peak_bytes=smem, total=total if runnable else math.inf,
+        collective_bytes=coll,
     )
 
 
@@ -268,6 +293,23 @@ def _estimate_topk(plan: TopkPlan, priors: Priors) -> CostBreakdown:
     return _finish(hbm, ops, 0.0, launches, nw)
 
 
+def _estimate_shard(plan: ShardPlan, priors: Priors) -> CostBreakdown:
+    # The dealt, sample and bucket phases sort concatenations of d sorted
+    # runs: sorted in large part whatever the input, as in the reference.
+    piecewise = dataclasses.replace(
+        priors, sortedness=max(priors.sortedness, 0.75))
+    hbm = ops = glue = 0.0
+    for name in SHARD_SUBPLANS:
+        sub: SortPlan = getattr(plan, name)
+        hb, op, gl = _estimate_node(sub.root, sub.num_words,
+                                    priors if name == "run_plan" else piecewise)
+        hbm, ops, glue = hbm + hb, ops + op, glue + gl
+    # The deal, the sample gather and the c_pair-padded exchange: padding
+    # is charged in full, which lets the tuner weigh pair_align.
+    coll = float(plan.collective_elements) * plan.bytes_per_element
+    return _finish(hbm, ops, glue, shard_launches(plan), plan.num_words, coll)
+
+
 def estimate(plan, priors: Priors | None = None) -> CostBreakdown:
     """Analytic cost of a plan: the autotuner's ranking score.
 
@@ -276,8 +318,9 @@ def estimate(plan, priors: Priors | None = None) -> CostBreakdown:
     geometry.
 
     Args:
-        plan: a :class:`~repro_torch.core.plan.SortPlan` or
-            :class:`~repro_torch.core.plan.TopkPlan`.
+        plan: a :class:`~repro_torch.core.plan.SortPlan`,
+            :class:`~repro_torch.core.plan.TopkPlan` or
+            :class:`~repro_torch.core.plan.ShardPlan`.
         priors: distribution priors (``probe.priors_for``); None means
             :data:`DEFAULT_PRIORS`.
     Returns:
@@ -300,8 +343,11 @@ def estimate(plan, priors: Priors | None = None) -> CostBreakdown:
         return _estimate_sort(plan, priors)
     if isinstance(plan, TopkPlan):
         return _estimate_topk(plan, priors)
+    if isinstance(plan, ShardPlan):
+        return _estimate_shard(plan, priors)
     raise TypeError(
-        f"estimate() takes a SortPlan or TopkPlan, got {type(plan).__name__}"
+        f"estimate() takes a SortPlan or TopkPlan (or a ShardPlan), got "
+        f"{type(plan).__name__}"
     )
 
 

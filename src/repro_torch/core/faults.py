@@ -14,8 +14,12 @@ once per trace; the port checks it once per launch, so a sort hits the
 site once per row-sort launch of its plan.  ``core/autotune.py`` checks
 ``cache.load`` and ``cache.save`` at each store read and write, and
 ``autotune.measure`` once per candidate measurement, as the JAX package
-does.  The other two names stay registered for the modules that will check
-them (ROADMAP.md Queue 1 items 10 and 12).
+does (the distributed tuner once per attempt on every rank).
+``core/distributed_sort.py`` checks ``collective.exchange`` once per
+attempt of a rank, just before the bucket exchange; the ranks agree on a
+failure before any of them retries.  ``pipeline.producer`` stays
+registered for the module that will check it (ROADMAP.md Queue 1 item
+12).
 
 Two ways to arm a rule:
 
@@ -56,7 +60,7 @@ SITES = (
     "cache.load",           # plan-cache store read (core/autotune.py)
     "cache.save",           # plan-cache store persist (core/autotune.py)
     "autotune.measure",     # candidate measurement (core/autotune.py)
-    "collective.exchange",  # all-to-all of the distributed sort (not ported)
+    "collective.exchange",  # all-to-all of the distributed sort (core/distributed_sort.py)
     "pipeline.producer",    # prefetch thread of the data pipeline (not ported)
 )
 

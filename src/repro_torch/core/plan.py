@@ -20,6 +20,14 @@ the device of the tensors it runs on decides kernel or plain version.
 and :func:`topk_launches` list the kernel launches a plan's walk makes;
 :func:`plan_to_dict` / :func:`plan_from_dict` serialize a plan for the
 autotuner's store and plan files (``core/autotune.py``).
+
+:class:`ShardPlan` is the distributed sort's schedule
+(``core/distributed_sort.py``): the capacities of :func:`shard_geometry`
+and four per-phase local-sort plans, built by :func:`build_shard_plan`;
+:func:`shard_launches` is its walk, and :func:`shard_plan_to_dict` /
+:func:`shard_plan_from_dict` its record.  Like :class:`SortPlan` it
+holds no device and no backend: the tensors and the process group of a
+run decide those.
 """
 
 from __future__ import annotations
@@ -323,6 +331,232 @@ def build_topk_plan(length: int, k: int, dtype, cfg: SortConfig, *,
 
 
 # ----------------------------------------------------------------------
+# ShardPlan: the distributed sort's schedule
+# ----------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardGeometry:
+    """Capacities of the distributed deal-round sort, the JAX package's
+    arithmetic.
+
+    Regular sampling bounds every global bucket at ``b_t = n_pad * (1 +
+    1/oversample)``; the deal spreads each source's share of a bucket
+    over the d ranks to within one, so one rank sends another at most
+    ``c_pair = ceil(b_t / d) + d`` elements (rounded up to
+    ``pair_align``), and the exchange has a fixed shape.
+
+    Attributes:
+        n_local: shard length before padding.
+        d: ranks the sort spans.
+        oversample: regular-sampling oversample factor c.
+        pair_align: the multiple c_pair is rounded up to.
+        s_loc: samples per shard (oversample * d).
+        n_pad: shard length padded to a multiple of s_loc, so that the
+            deal and the equidistant sampling are exact.
+        b_t: the largest global bucket, n_pad + n_pad // oversample.
+        c_pair: what one rank sends another in the exchange, at most.
+        out_cap: the output capacity of a rank, at least any bucket.
+    """
+
+    n_local: int
+    d: int
+    oversample: int
+    pair_align: int
+    s_loc: int
+    n_pad: int
+    b_t: int
+    c_pair: int
+    out_cap: int
+
+
+def shard_geometry(n_local: int, d: int, oversample: int = 8,
+                   pair_align: int = 8) -> ShardGeometry:
+    """The distributed sort's capacities, validated.
+
+    Raises:
+        ValueError: naming the argument, with the JAX package's messages:
+            ``n_local`` an int >= 1, ``d`` an int >= 2, ``oversample`` a
+            power of two >= 1, ``pair_align`` a power of two >= 8.
+
+    Example:
+        >>> from repro_torch.core.plan import shard_geometry
+        >>> g = shard_geometry(n_local=1000, d=4, oversample=8)
+        >>> (g.s_loc, g.n_pad, g.b_t, g.c_pair >= g.b_t // 4 + 4)
+        (32, 1024, 1152, True)
+    """
+    if not (isinstance(n_local, int) and n_local >= 1):
+        raise ValueError(
+            f"shard_geometry n_local must be an int >= 1, got {n_local!r}")
+    if not (isinstance(d, int) and d >= 2):
+        raise ValueError(
+            f"shard_geometry d must be an int >= 2 (devices along the "
+            f"sort axis), got {d!r}")
+    if not (isinstance(oversample, int) and oversample >= 1
+            and oversample & (oversample - 1) == 0):
+        raise ValueError(
+            "oversample must be a power of two >= 1 (keeps s_loc = "
+            f"oversample * d power-of-two-compatible), got {oversample!r}")
+    if not (isinstance(pair_align, int) and pair_align >= 8
+            and pair_align & (pair_align - 1) == 0):
+        raise ValueError(
+            f"pair_align must be a power of two >= 8, got {pair_align!r}")
+    s_loc = oversample * d
+    n_pad = round_up(n_local, s_loc)
+    b_t = n_pad + n_pad // oversample
+    c_pair = round_up(-(-b_t // d) + d, pair_align)
+    return ShardGeometry(
+        n_local=n_local, d=d, oversample=oversample, pair_align=pair_align,
+        s_loc=s_loc, n_pad=n_pad, b_t=b_t, c_pair=c_pair,
+        out_cap=min(round_up(b_t, 8), d * c_pair),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """The static schedule of one distributed sort signature.
+
+    Attributes:
+        axis: the mesh axis names the group stands for (identity only).
+        d / n_local / n_pad / oversample / pair_align / s_loc / b_t /
+            c_pair / out_cap: the :class:`ShardGeometry`.
+        dtype_name / num_words / descending: key codec identity.
+        cfg_fingerprint: hash of the generating config.
+        run_plan: the local sort of the (1, n_pad) shard, with the
+            config's strategy.
+        dealt_plan: the local sort of the dealt (1, n_pad) run.
+        sample_plan: the sort of the (1, d*s_loc) gathered samples.
+        bucket_plan: the sort of the received (1, d*c_pair) buckets.
+            These three sort with the bitonic strategy (K1, on words and
+            payload) whatever the config's: their inputs are d sorted
+            runs one after the other, whose equal keys a sort stable on
+            the key words alone would leave out of payload order.
+    """
+
+    axis: tuple[str, ...]
+    d: int
+    n_local: int
+    n_pad: int
+    oversample: int
+    pair_align: int
+    s_loc: int
+    b_t: int
+    c_pair: int
+    out_cap: int
+    dtype_name: str
+    num_words: int
+    descending: bool
+    cfg_fingerprint: str
+    run_plan: SortPlan
+    dealt_plan: SortPlan
+    sample_plan: SortPlan
+    bucket_plan: SortPlan
+
+    @property
+    def n_glob(self) -> int:
+        """Global padded element count (n_pad * d)."""
+        return self.n_pad * self.d
+
+    @property
+    def bytes_per_element(self) -> int:
+        """Bytes an element moves with: its key words and its payload."""
+        return 4 * (self.num_words + 1)
+
+    @property
+    def exchange_elements(self) -> int:
+        """Elements a rank sends (and receives) in the bucket exchange,
+        c_pair-padded: d * c_pair."""
+        return self.d * self.c_pair
+
+    @property
+    def collective_elements(self) -> int:
+        """Elements a rank moves through collectives: the deal (n_pad),
+        the sample gather (d * s_loc) and the exchange (d * c_pair)."""
+        return self.n_pad + self.d * self.s_loc + self.exchange_elements
+
+    def signature(self) -> tuple:
+        """The plan's identity: axis names and d, shard length, dtype and
+        order, oversample and pair_align, the config's fingerprint."""
+        return ("x".join(self.axis), self.d, self.n_local, self.dtype_name,
+                self.descending, self.oversample, self.pair_align,
+                self.cfg_fingerprint)
+
+    def describe(self) -> str:
+        """Human-readable summary of the distributed schedule."""
+        lines = [
+            f"ShardPlan(axis={self.axis}, d={self.d}, "
+            f"n_local={self.n_local}->{self.n_pad}, dtype={self.dtype_name}"
+            f"{' desc' if self.descending else ''}, "
+            f"oversample={self.oversample}, c_pair={self.c_pair}, "
+            f"out_cap={self.out_cap})"
+        ]
+        for name in SHARD_SUBPLANS:
+            sub: SortPlan = getattr(self, name)
+            lines.append(f"  {name}: length={sub.length} "
+                         f"levels={sub.num_levels} strategy={sub.root.strategy}")
+        return "\n".join(lines)
+
+
+#: The four per-phase local-sort plans of a ShardPlan, in run order.
+SHARD_SUBPLANS = ("run_plan", "dealt_plan", "sample_plan", "bucket_plan")
+
+
+@functools.lru_cache(maxsize=256)
+def _assemble_shard_plan(axis: tuple[str, ...], d: int, n_local: int,
+                         dtype_name: str, nw: int, descending: bool,
+                         cfg: SortConfig, oversample: int,
+                         pair_align: int) -> ShardPlan:
+    g = shard_geometry(n_local, d, oversample, pair_align)
+    sub = functools.partial(build_words_plan, num_words=nw, cfg=cfg)
+    # The dealt run, the gathered samples and the received buckets are
+    # concatenations of d sorted runs: equal keys do not arrive in payload
+    # order there, so only a sort on (words, payload) orders them, and the
+    # radix and merge sorts are stable on the words alone (ROADMAP.md R5,
+    # D13).  The config's strategy sorts the shard itself.
+    merged = functools.partial(
+        build_words_plan, num_words=nw,
+        cfg=dataclasses.replace(cfg, strategy="bitonic", plan="default"))
+    return ShardPlan(
+        axis=axis, d=d, n_local=n_local, n_pad=g.n_pad, oversample=oversample,
+        pair_align=pair_align, s_loc=g.s_loc, b_t=g.b_t, c_pair=g.c_pair,
+        out_cap=g.out_cap, dtype_name=dtype_name, num_words=nw,
+        descending=descending, cfg_fingerprint=config_fingerprint(cfg),
+        run_plan=sub(g.n_pad), dealt_plan=merged(g.n_pad),
+        sample_plan=merged(d * g.s_loc), bucket_plan=merged(d * g.c_pair),
+    )
+
+
+def build_shard_plan(axis, d: int, n_local: int, dtype, cfg: SortConfig, *,
+                     oversample: int = 8, pair_align: int = 8) -> ShardPlan:
+    """Static schedule of a distributed sort of d shards of ``n_local``
+    keys of ``dtype``.
+
+    Pure and memoized like :func:`build_plan`: equal arguments give the
+    same plan object.  ``axis`` (a name or a tuple of names) becomes a
+    tuple; ``cfg.plan`` is not read here (``make_sharded_sort`` is where
+    a plan is chosen).
+
+    Raises:
+        ValueError: from :func:`shard_geometry`, naming the argument, or
+            from the sub-plans' builder (ROADMAP.md D2).
+        TypeError: for a dtype without a key codec.
+
+    Example:
+        >>> from repro_torch.core.plan import build_shard_plan
+        >>> from repro_torch.core.sort_config import SortConfig
+        >>> p = build_shard_plan("data", 4, 2048, "int32",
+        ...                      SortConfig(tile=256, s=16, direct_max=512))
+        >>> (p.axis, p.n_pad, p.c_pair % 8, p.out_cap >= p.b_t)
+        (('data',), 2048, 0, True)
+    """
+    axt = (axis,) if isinstance(axis, str) else tuple(axis)
+    codec = codec_for(dtype, cfg.descending)
+    return _assemble_shard_plan(axt, d, n_local, codec.dtype_name,
+                                codec.num_words, cfg.descending, cfg,
+                                oversample, pair_align)
+
+
+# ----------------------------------------------------------------------
 # The launches of a plan's walk
 # ----------------------------------------------------------------------
 
@@ -375,9 +609,24 @@ def topk_launches(tplan: TopkPlan) -> list:
     return out
 
 
-def plan_launches(plan: SortPlan) -> collections.Counter:
-    """Launches per kernel of a SortPlan's walk."""
-    return collections.Counter(k for k, *_ in kernel_launches(plan.root))
+def shard_launches(plan: ShardPlan) -> list:
+    """The launches one rank's run of a ShardPlan makes, in order: the
+    walks of the run, dealt and sample plans, one K3 launch ranking the
+    d - 1 splitters in the (1, n_pad) run, then the bucket plan's walk."""
+    out = kernel_launches(plan.run_plan.root)
+    kernel_launches(plan.dealt_plan.root, out)
+    kernel_launches(plan.sample_plan.root, out)
+    out.append(("splitter_ranks", 1, plan.n_pad, plan.d - 1))
+    kernel_launches(plan.bucket_plan.root, out)
+    return out
+
+
+def plan_launches(plan) -> collections.Counter:
+    """Launches per kernel of a SortPlan's or a ShardPlan's walk (one
+    rank's, for a ShardPlan)."""
+    walk = (shard_launches(plan) if isinstance(plan, ShardPlan)
+            else kernel_launches(plan.root))
+    return collections.Counter(k for k, *_ in walk)
 
 
 # ----------------------------------------------------------------------
@@ -430,3 +679,47 @@ def plan_json(plan: SortPlan) -> str:
     """Canonical JSON of a plan (sorted keys): byte-identical for equal
     plans."""
     return json.dumps(plan_to_dict(plan), sort_keys=True)
+
+
+# The distributed sort's record: the four sub-plans are embedded as
+# whole torch_sort_plan/v1 records, so a change of that schema makes
+# stored shard plans clean misses too.
+_SHARD_SCHEMA = "torch_shard_plan/v1"
+
+
+def shard_plan_to_dict(plan: ShardPlan) -> dict:
+    """JSON-serializable record of a shard plan;
+    ``shard_plan_from_dict(shard_plan_to_dict(p)) == p`` exactly."""
+    d = dataclasses.asdict(plan)
+    d["axis"] = list(plan.axis)
+    for name in SHARD_SUBPLANS:
+        d[name] = plan_to_dict(getattr(plan, name))
+    d["schema"] = _SHARD_SCHEMA
+    return d
+
+
+def shard_plan_from_dict(d: dict) -> ShardPlan:
+    """The :class:`ShardPlan` of a record written by
+    :func:`shard_plan_to_dict`.
+
+    Raises:
+        ValueError: for a record without the port's shard schema tag (a
+            JAX package record among them), with a sub-plan of another
+            schema, or with fields that are not the plan's.
+    """
+    d = dict(d)
+    schema = d.pop("schema", None)
+    if schema != _SHARD_SCHEMA:
+        raise ValueError(f"not a {_SHARD_SCHEMA} record (schema={schema!r})")
+    try:
+        d["axis"] = tuple(d["axis"])
+        for name in SHARD_SUBPLANS:
+            d[name] = plan_from_dict(d[name])
+        return ShardPlan(**d)
+    except (KeyError, TypeError) as e:
+        raise ValueError(f"malformed {_SHARD_SCHEMA} record: {e}") from e
+
+
+def shard_plan_json(plan: ShardPlan) -> str:
+    """Canonical JSON of a shard plan (sorted keys)."""
+    return json.dumps(shard_plan_to_dict(plan), sort_keys=True)

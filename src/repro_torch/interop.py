@@ -56,3 +56,22 @@ def plan_tree(plan) -> tuple:
     the JAX package's plans, so the two can be compared for equality.
     """
     return (plan.rows, plan.length, plan.num_words, _node_tree(plan.root))
+
+
+def shard_plan_tree(plan) -> tuple:
+    """Nested tuple of a shard plan's algorithmic fields: (axis, d,
+    n_local, n_pad, oversample, pair_align, s_loc, b_t, c_pair, out_cap,
+    dtype_name, num_words, descending) and the :func:`plan_tree` of its
+    run, dealt, sample and bucket plans.
+
+    Works on this package's ``ShardPlan`` and on the JAX package's, so the
+    two can be compared for equality (the config fingerprints, which hash
+    each package's own config fields, are left out).
+    """
+    return (
+        tuple(plan.axis), plan.d, plan.n_local, plan.n_pad, plan.oversample,
+        plan.pair_align, plan.s_loc, plan.b_t, plan.c_pair, plan.out_cap,
+        plan.dtype_name, plan.num_words, plan.descending,
+        *(plan_tree(getattr(plan, name)) for name in
+          ("run_plan", "dealt_plan", "sample_plan", "bucket_plan")),
+    )

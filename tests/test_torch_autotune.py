@@ -452,3 +452,125 @@ def test_the_calibration_fit_recovers_constants_on_its_grid():
     assert (fit["GLUE_FACTOR"], fit["OP_BYTE_EQUIV"], fit["LAUNCH_BYTE_EQUIV"]) == (
         3.0, 0.05, 1e6)
     assert fit["rms_log_error"] < 1e-9 and fit["rho"] == 1.0
+
+
+# ----------------------------------------------------------------------
+# The distributed half: shard candidates, the store's shard keys, plan
+# files (the tuning runs themselves are in tests/test_torch_distributed.py)
+# ----------------------------------------------------------------------
+
+SHARD_SPACES = [  # (config knobs, oversample, pair_align, max_trials)
+    (GEOMETRY, 8, 8, 8), (GEOMETRY, 8, 8, 1000), (GEOMETRY, 1, 8, 1000),
+    (dict(GEOMETRY, strategy="radix"), 32, 256, 1000),
+    (dict(GEOMETRY, strategy="merge"), 2, 128, 4),
+    (dict(tile=4096, s=64, direct_max=8192), 8, 8, 8),
+]
+
+
+@pytest.mark.parametrize("kw,oversample,pair_align,max_trials", SHARD_SPACES)
+def test_shard_candidate_space_is_the_references(kw, oversample, pair_align,
+                                                 max_trials):
+    def rows(space):
+        return [(c.label, c.oversample, c.pair_align, c.cfg.strategy,
+                 c.cfg.tile, c.cfg.s, c.cfg.plan) for c in space]
+
+    got = autotune.shard_candidate_space(
+        SortConfig(**kw, plan="autotune"), oversample=oversample,
+        pair_align=pair_align, max_trials=max_trials)
+    want = jax_autotune.shard_candidate_space(
+        JaxConfig(**kw, impl="xla", plan="autotune"), oversample=oversample,
+        pair_align=pair_align, max_trials=max_trials)
+    assert rows(got) == rows(want)
+    assert got[0].label == "base" and got[0].cfg.plan == "default"
+
+
+def shard_base(d=2, n_local=2048, **kw):
+    from repro_torch.core.plan import build_shard_plan
+
+    return build_shard_plan("data", d, n_local, "int32", CFG, **kw)
+
+
+def test_shard_keys_hold_the_device_and_the_backend():
+    plan = shard_base()
+    key = autotune.shard_cache_key(plan, "cpu", "gloo")
+    parts = key.split("|")
+    assert parts[0] == "shard" and len(parts) == 11
+    assert parts[1:8] == ["data", "2", "2048", "int32", "False", "8", "8"]
+    assert parts[8:] == ["cpu", "gloo", plan.cfg_fingerprint]
+    assert key != autotune.shard_cache_key(plan, "cpu", "nccl")
+    assert key != autotune.cache_key(plan.run_plan, "cpu")
+    assert autotune.shard_cache_key(shard_base(pair_align=128), "cpu", "gloo") != key
+
+
+def shard_record(plan, version=cost_model.COST_MODEL_VERSION):
+    from repro_torch.core.plan import shard_plan_to_dict
+
+    return dict(plan=shard_plan_to_dict(plan), cost_model=version)
+
+
+def test_nearest_shard_record_needs_the_same_device_and_backend():
+    base = shard_base(n_local=4096)
+    key = autotune.shard_cache_key(base, "cpu", "gloo")
+    near_plan = shard_base(n_local=2048, oversample=16)
+    far_plan = shard_base(d=4, n_local=64)
+    store = {"plans": {
+        autotune.shard_cache_key(near_plan, "cpu", "nccl"): shard_record(near_plan),
+        autotune.shard_cache_key(far_plan, "cpu", "gloo"): shard_record(far_plan),
+        autotune.cache_key(base.run_plan, "cpu"): dict(
+            plan=plan_to_dict(base.run_plan),
+            cost_model=cost_model.COST_MODEL_VERSION),
+    }}
+    got = autotune._nearest_shard_record(store, base, key, "cpu", "gloo")
+    assert got[0] == far_plan
+    store["plans"][autotune.shard_cache_key(near_plan, "cpu", "gloo")] = \
+        shard_record(near_plan)
+    assert autotune._nearest_shard_record(store, base, key, "cpu", "gloo")[0] == near_plan
+    seed = autotune._shard_seed_from_record(near_plan, CFG)
+    assert (seed.label, seed.oversample, seed.pair_align) == ("transfer", 16, 8)
+    assert autotune._nearest_shard_record(store, base, key, "cpu", "mpi") is None
+
+
+def test_shard_lookup_hits_misses_and_transfers(tmp_path):
+    path = str(tmp_path / "plans.json")
+    base = shard_base()
+    key = autotune.shard_cache_key(base, "cpu", "gloo")
+    args = (key, base, CFG, path, True, 5, "cpu", "gloo")
+    miss = autotune._shard_lookup(*args)
+    assert miss["plan"] is None and miss["seeds"] == () and miss["budget"] == 5
+    tuned = shard_base(oversample=16)
+    store = autotune._fresh_store()
+    store["plans"][key] = shard_record(tuned)
+    store["denylist"][key] = {"strategy=merge": "boom"}
+    other = shard_base(n_local=8192)
+    store["plans"][autotune.shard_cache_key(other, "cpu", "gloo")] = shard_record(other)
+    autotune._write_json(path, store)
+    assert autotune._shard_lookup(*args) == {"plan": tuned}
+    autotune._SHARD_MEMO[key] = tuned
+    assert autotune._shard_lookup(*args)["plan"] is tuned
+    autotune.clear_memo()
+    store["plans"][key] = shard_record(tuned, "torch_cost_model/old")
+    autotune._write_json(path, store)
+    stale = autotune._shard_lookup(*args)
+    assert stale["plan"] is None and stale["deny"] == {"strategy=merge"}
+    assert stale["budget"] == 2 and stale["seeds"][0].label == "transfer"
+    assert stale["transfer_from"] == autotune.shard_cache_key(other, "cpu", "gloo")
+
+
+def test_shard_plan_files_round_trip_and_refuse_other_signatures(tmp_path):
+    plan = shard_base(d=4, n_local=1024)
+    path = str(tmp_path / "shard.json")
+    autotune.save_shard_plan(plan, path, meta={"label": "base"})
+    assert autotune.load_shard_plan(path) == plan
+    assert autotune.load_shard_plan(path, axis="data", d=4, n_local=1024,
+                                    dtype=torch.int32, cfg=CFG) == plan
+    for kw in (dict(axis="model", d=4, n_local=1024, dtype="int32"),
+               dict(axis="data", d=2, n_local=1024, dtype="int32"),
+               dict(axis="data", d=4, n_local=1024, dtype="float32"),
+               dict(axis="data", d=4, n_local=1024, dtype="int32",
+                    cfg=SortConfig(descending=True))):
+        with pytest.raises(ValueError, match="was built for"):
+            autotune.load_shard_plan(path, **kw)
+    other = tmp_path / "sort.json"
+    autotune.save_plan(plan.run_plan, str(other))
+    with pytest.raises(ValueError, match="torch_shard_plan/v1"):
+        autotune.load_shard_plan(str(other))

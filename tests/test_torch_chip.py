@@ -630,3 +630,44 @@ def test_cost_model_ranks_the_calibration_slice(cuda):
     five = sorted(range(len(pred)), key=lambda i: (pred[i], i))[:5]
     winner = min(range(len(meas)), key=meas.__getitem__)
     assert winner in five or winner == 0, table
+
+
+def test_two_rank_sort_on_the_card(cuda, tmp_path):
+    """Two rank processes on cuda:0 and one gloo group (gloo copies the
+    CUDA tensors through host memory): each run's valid prefixes, in rank order,
+    equal stable torch.sort of the whole array on the card, its payloads
+    the permutation, max_within < c_pair and the launches the ShardPlan's
+    walk.  Then collective.exchange failing on rank 0 at every hit: one
+    retry, then a SortRuntimeError on both ranks naming the site and the
+    plan, with no host sort and no library sort (ROADMAP.md D8)."""
+    import numpy as np
+    import torch_ranks
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh
+
+    _build.build()
+    rng = np.random.default_rng(0)
+    inputs = dict(
+        a=rng.integers(-(2**31), 2**31 - 1, 1 << 20, dtype=np.int64).astype(np.int32),
+        b=rng.integers(-50, 50, 1 << 18, dtype=np.int64))
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    ranks = mesh.run_ranks(torch_ranks.card_sort, 2, dict(
+        data=str(tmp_path / "inputs.npz"), cells=[("a", False), ("b", True)],
+        fault=True), timeout_s=120, deadline_s=600)
+    for name, desc in (("a", False), ("b", True)):
+        outs = [r[torch_ranks.cell_id(name, desc)] for r in ranks]
+        keys = np.concatenate([o["keys"][:o["count"]] for o in outs])
+        vals = np.concatenate([o["vals"][:o["count"]] for o in outs])
+        want = torch.sort(torch.from_numpy(inputs[name]).cuda(), stable=True,
+                          descending=desc)
+        assert torch.equal(torch.from_numpy(keys).cuda(), want.values)
+        assert torch.equal(torch.from_numpy(vals).cuda().long(), want.indices)
+        for o in outs:
+            assert o["max_within"] < o["c_pair"]
+            assert o["launches_equal"]
+    for r in ranks:
+        fault = r["fault"]
+        assert fault["error"] is not None, "the double fault did not raise"
+        assert fault["error"]["site"].startswith("collective.exchange[D=2]:ShardPlan(")
+        assert fault["log"] == ["retry"] and fault["calls"] == []

@@ -30,7 +30,13 @@ from repro.core import plan as jax_plan  # noqa: E402
 from repro.core import probe as jax_probe  # noqa: E402
 from repro.core.sort_config import SortConfig as JaxConfig  # noqa: E402
 from repro_torch.core import bucket_sort, cost_model, partial_sort, probe  # noqa: E402
-from repro_torch.core.plan import build_plan, build_topk_plan, kernel_launches  # noqa: E402
+from repro_torch.core.plan import (  # noqa: E402
+    build_plan,
+    build_shard_plan,
+    build_topk_plan,
+    kernel_launches,
+    shard_launches,
+)
 from repro_torch.core.sort_config import SortConfig  # noqa: E402
 from repro_torch.kernels import bitonic, ops, radix  # noqa: E402
 
@@ -224,3 +230,69 @@ def test_spearman_is_the_rank_correlation(seed):
                                                       abs=1e-12)
     assert cost_model.spearman(a, a * 3 + 1) == 1.0
     assert cost_model.spearman(a, -a) == -1.0
+
+
+# ----------------------------------------------------------------------
+# ShardPlans: the four sub-plans, and the collective channel
+# ----------------------------------------------------------------------
+
+SHARD_SIGNATURES = [  # (geometry, d, n_local, dtype, oversample, pair_align)
+    (SMALL, 2, 2048, "int32", 8, 8), (SMALL, 4, 3000, "float64", 4, 128),
+    (SMALL, 8, 512, "int32", 8, 8), (BASE, 4, 1 << 22, "int32", 8, 8),
+    (BASE, 2, 1 << 24, "int64", 16, 256),
+]
+
+
+def shard_plans(geometry, kw, d, n_local, dtype, oversample, pair_align):
+    """The port's ShardPlan and the JAX package's impl="xla" one."""
+    knobs = dict(oversample=oversample, pair_align=pair_align)
+    ctx = jax.enable_x64(True) if dtype in ("int64", "float64") \
+        else contextlib.nullcontext()
+    with ctx:
+        theirs = jax_plan.build_shard_plan(
+            "data", d, n_local, dtype, JaxConfig(**geometry, **kw, impl="xla"),
+            **knobs)
+    return (build_shard_plan("data", d, n_local, dtype,
+                             SortConfig(**geometry, **kw), **knobs), theirs)
+
+
+@pytest.mark.parametrize("sig", SHARD_SIGNATURES,
+                         ids=lambda s: f"{s[0]['tile']}-d{s[1]}-{s[2]}-{s[3]}")
+@pytest.mark.parametrize("name", ["base", "radix", "merge"])
+def test_shard_channels_equal_the_reference(name, sig):
+    ours, theirs = shard_plans(sig[0], KW_POOL[name], *sig[1:])
+    got, want = cost_model.estimate(ours), jax_cm.estimate(theirs)
+    assert got.hbm_bytes == want.hbm_bytes
+    assert got.collective_bytes == want.collective_bytes > 0
+    if name == "base":  # else the later phases sort bitonic here (D13)
+        assert got.op_units == want.op_units
+    assert got.launches == len(shard_launches(ours))
+    assert got.total == (
+        got.hbm_bytes + cost_model.GLUE_FACTOR * got.glue_bytes
+        + cost_model.OP_BYTE_EQUIV * got.op_units
+        + cost_model.LAUNCH_BYTE_EQUIV * got.launches
+        + cost_model.COLLECTIVE_BYTE_WEIGHT * got.collective_bytes)
+    assert "collective_bytes" in got.as_dict()
+
+
+def test_collective_weight_is_hbm_over_one_nvlink_direction():
+    assert cost_model.COLLECTIVE_BYTE_WEIGHT == pytest.approx(3.35e12 / 450e9)
+
+
+@pytest.mark.parametrize("sig", SIGNATURES[:4] + SIGNATURES[6:],
+                         ids=lambda s: f"{s[0]['tile']}-{s[1]}-{s[2]}-{s[3]}")
+def test_single_device_totals_have_no_collective_term(sig):
+    """A SortPlan's or TopkPlan's total is the fitted formula: no collective
+    bytes, so the fitted constants still hold."""
+    geometry, length, rows, dtype = sig
+    ours, _ = plans(geometry, {}, length, rows, dtype)
+    tk = build_topk_plan(length, min(50, length), "float32",
+                         SortConfig(**geometry), rows=rows)
+    for got in (cost_model.estimate(ours), cost_model.estimate(tk)):
+        assert got.collective_bytes == 0
+        assert "collective_bytes" not in got.as_dict()
+        assert got.total == (
+            got.hbm_bytes + cost_model.GLUE_FACTOR * got.glue_bytes
+            + cost_model.OP_BYTE_EQUIV * got.op_units
+            + cost_model.LAUNCH_BYTE_EQUIV * got.launches)
+    assert cost_model.COST_MODEL_VERSION == "torch_cost_model/h100-v1"

@@ -330,3 +330,53 @@ def test_autotune_sites_degrade_as_the_reference(tmp_path, site, on_hit, count):
                     torch.int32, site, on_hit, count)
     assert got == want
     assert got[0] or got[1]  # the fault was seen, not silently absorbed
+
+
+# ----------------------------------------------------------------------
+# collective.exchange: the distributed chain on two gloo CPU ranks
+# ----------------------------------------------------------------------
+
+# The JAX package's events at this site (core/distributed_sort.py, the
+# chain of make_sharded_sort's run), for D = 2.
+EXCHANGE_EVENTS = {
+    1: [("collective.exchange[D=2]", "retry", "mesh execution",
+         "mesh execution (retry)")],
+    2: [("collective.exchange[D=2]", "retry", "mesh execution",
+         "mesh execution (retry)"),
+        ("collective.exchange[D=2]", "fallback", "mesh execution",
+         "gather-to-host degraded sort")],
+}
+
+
+@pytest.fixture(scope="module")
+def exchange_chain(tmp_path_factory):
+    """collective.exchange armed on rank 1 of 2 only, failing 1 and then
+    2 hits; each rank's events, outputs and hits."""
+    import torch_ranks
+
+    from repro_torch.launch import mesh
+
+    x = np.random.default_rng(5).integers(-(2**31), 2**31 - 1, 4096,
+                                          dtype=np.int64).astype(np.int32)
+    path = tmp_path_factory.mktemp("exchange") / "inputs.npz"
+    np.savez(path, x=x)
+    ranks = mesh.run_ranks(torch_ranks.fault_chain, 2, dict(
+        data=str(path), cell="x", fault_rank=1, counts=[1, 2]),
+        timeout_s=60, deadline_s=300)
+    return x, ranks
+
+
+@pytest.mark.parametrize("count", [1, 2])
+def test_exchange_fault_on_one_rank_logs_the_references_events_on_every_rank(
+        exchange_chain, count):
+    x, ranks = exchange_chain
+    for r in ranks:
+        assert r[count]["events"] == EXCHANGE_EVENTS[count]
+        assert r[count]["stats"] == {"degraded": count == 2, "retries": 1}
+    assert ranks[1][count]["hits"] == 2  # one check per attempt
+    keys = np.concatenate([r[count]["keys"][:r[count]["count"]] for r in ranks])
+    vals = np.concatenate([r[count]["vals"][:r[count]["count"]] for r in ranks])
+    np.testing.assert_array_equal(keys, np.sort(x, kind="stable"))
+    np.testing.assert_array_equal(vals, np.argsort(x, kind="stable"))
+    for r in ranks:
+        assert r["healed"]["events"] == []
