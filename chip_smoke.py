@@ -99,6 +99,28 @@ K5 radix sort, K6 merge sort) and then
      fresh store (the candidates measured, the winner, the same on every
      rank, a warm call, a plan file).  These are ranks sharing one card,
      not a multi-GPU result;
+   - serving: ``qwen3-moe-30b-a3b`` at full width and depth (48 layers,
+     d_model 2048, 128 experts top-8, 30,079,649,792 parameters drawn
+     on the card from ``--seed`` in bfloat16) through
+     ``launch/serve.generate``: 8 requests of 1,024 ``default_rng(0)``
+     prompt tokens prefilled (8,192 tokens, 65,536 routed slots), 15
+     decode steps, 16 tokens sampled at top-k 8, temperature 0.8, TF32
+     off.  First layer 0's router ids and dispatch permutation against a
+     stable descending ``torch.sort`` and ``torch.argsort(stable=True)``;
+     then one serve with each dispatch ("sample_sort": K4 router, the
+     sample sort's K1 and K2 for the dispatch; "xla_sort" and "onehot":
+     library sort, one-hot rank), each with its launches held to the
+     plans (K1 912, K2 48, K3 16, K4 768 for "sample_sort"; K1 48, K3
+     16 for the others: the sampler's), every logit finite and every
+     token in the padded vocab, a ``{"serving": ...}`` line each (cold
+     init s, prefill ms, decode ms a token, peak GB, launches, the
+     router's, dispatch's and sampler's ms from CUDA events around them
+     and their share); the three prefill logits and token sequences
+     must be bit-identical, and the sampler's ``topk_batched`` of the
+     prefill logits equal ``kernels/ref.topk_desc``.  The model is
+     freed; then the smoke config (float32, the same weights on both
+     devices) through prefill and 4 greedy decode steps on the card and
+     on the CPU: logits within 1e-4, the same tokens;
    every run of these paths has its kernel launches counted, and they
    must be those its plan calls for;
 5. prints the script's wall time, then a JSON line of per-kernel numbers
@@ -129,6 +151,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import math
@@ -649,18 +672,16 @@ def kernel_row(kernel, measure, shape, source, replaces, gen, launches):
     return row
 
 
-def profile_main_path(case):
-    """Device time by kernel over one run of a main-path case, and the
-    device's idle share of the run's wall time (torch.profiler)."""
+def device_profile(fn, top_n=15) -> dict:
+    """Device time by kernel over one run of fn() after a warm-up, and
+    the device's idle share of the run's wall time (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    name, fn, fargs = case.name, case.fn, case.args
-    dev_args = tuple(a.cuda() for a in fargs)
-    fn(*dev_args)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(*dev_args)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}  # device-side events only (kernels, copies, memsets)
@@ -668,14 +689,21 @@ def profile_main_path(case):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.key] = (e.self_device_time_total / 1e3, e.count)
     device_ms = sum(ms for ms, _ in by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
-    print(json.dumps({
-        "profile": name, "wall_ms": wall_ms,
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top_n]
+    return {
+        "wall_ms": wall_ms,
         "device_ms": device_ms if by_kernel else "not measured",
         "device_idle_share": 1 - device_ms / wall_ms if by_kernel else None,
         "top": [{"kernel": k[:90], "ms": ms, "calls": c}
                 for k, (ms, c) in top],
-    }))
+    }
+
+
+def profile_main_path(case):
+    """:func:`device_profile` of one run of a main-path case."""
+    dev_args = tuple(a.cuda() for a in case.args)
+    print(json.dumps({"profile": case.name,
+                      **device_profile(lambda: case.fn(*dev_args))}))
 
 
 def memory_by_step(x):
@@ -1890,6 +1918,314 @@ def distributed_phase(rng, totals):
             raise AssertionError("distributed faults: a library sort ran")
 
 
+# ----------------------------------------------------------------------
+# Serving: Qwen3-MoE-30B-A3B at full width and depth
+# ----------------------------------------------------------------------
+
+SERVE_ARCH = "qwen3-moe-30b-a3b"
+SERVE_RUN = dict(requests=8, prompt_len=1024, gen=16, topk=8, temperature=0.8)
+SERVE_DISPATCHES = ("sample_sort", "xla_sort", "onehot")
+SMOKE_DECODE_STEPS = 4
+# Card against CPU at smoke size, float32 with TF32 off on both: the same
+# ops, summed in other orders over two layers (the CPU parity tests hold
+# the port to the reference within the same 1e-4).
+SMOKE_TOL = 1e-4
+
+
+def serving_launches(cfg, requests, prompt_len, gen, topk) -> dict:
+    """Launches per kernel one serve calls for, from the plans: per layer
+    of the prefill and of each of the gen - 1 decode steps the router (K4,
+    "sample_sort" only) and the dispatch argsort (the sample sort's walk,
+    "sample_sort" only); the sampler's top-k walk at each of gen steps."""
+    from repro_torch.core import build_plan, build_topk_plan
+    from repro_torch.core.plan import kernel_launches, topk_launches
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+
+    walk = []
+    if cfg.moe.dispatch == "sample_sort":
+        k = cfg.moe.top_k
+        for tokens, times in ((requests * prompt_len, 1), (requests, gen - 1)):
+            plan = build_plan(tokens * k, torch.int32, moe._DISPATCH_SORT_CFG)
+            walk += times * cfg.n_layers * (
+                [("topk",)] + kernel_launches(plan.root))
+    tplan = build_topk_plan(cfg.padded_vocab, topk, getattr(torch, cfg.dtype),
+                            serve.sampler_config(), rows=requests)
+    walk += gen * topk_launches(tplan)
+    return dict(collections.Counter(name for name, *_ in walk))
+
+
+class SortSpans:
+    """CUDA events around every router top-k (``moe._topk_gates``),
+    dispatch rank (``moe._rank_in_expert_sort`` / ``_onehot``) and sampler
+    call (``serve.sample_topk``) while :meth:`patched` is on, and a device
+    flag that every logits row the sampler is given is finite."""
+
+    def __init__(self):
+        self.spans = []  # (kind, leading dim of the input, start, end)
+        self.finite = None
+
+    @contextlib.contextmanager
+    def patched(self):
+        from repro_torch.launch import serve
+        from repro_torch.models import moe
+
+        targets = [(moe, "_topk_gates", "router"),
+                   (moe, "_rank_in_expert_sort", "dispatch"),
+                   (moe, "_rank_in_expert_onehot", "dispatch"),
+                   (serve, "sample_topk", "sampler")]
+        saved = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+
+        def wrap(fn, kind):
+            def call(x, *args, **kwargs):
+                if kind == "sampler":
+                    ok = torch.isfinite(x).all()
+                    self.finite = ok if self.finite is None else self.finite & ok
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(x, *args, **kwargs)
+                b.record()
+                self.spans.append((kind, x.shape[0], a, b))
+                return out
+            return call
+
+        for (owner, name, kind), (_, _, fn) in zip(targets, saved):
+            setattr(owner, name, wrap(fn, kind))
+        try:
+            yield self
+        finally:
+            for owner, name, fn in saved:
+                setattr(owner, name, fn)
+
+    def ms(self, kind, rows=None, skip=0) -> float:
+        """Summed ms of the spans of ``kind`` (whose input has ``rows``
+        leading rows, if given), leaving out the first ``skip``."""
+        spans = [(a, b) for k, r, a, b in self.spans
+                 if k == kind and (rows is None or r == rows)][skip:]
+        return sum(a.elapsed_time(b) for a, b in spans)
+
+
+def check_router_and_dispatch(model, tokens, cfg):
+    """Layer 0's router ids and dispatch permutation on the card, at the
+    prefill's and a decode step's shapes, equal the library references: a
+    stable descending torch.sort and torch.argsort(stable=True).  These
+    launches compare, so they are not counted."""
+    from repro_torch.core import bucket_sort
+    from repro_torch.models import moe
+
+    k, layer = cfg.moe.top_k, model.layers[0]
+    with torch.inference_mode():
+        for rows in (tokens, tokens[:, :1]):
+            x = layer.ln2(model.embed(rows, cfg), cfg).reshape(-1, cfg.d_model)
+            logits = x.float() @ layer.moe.router.float()
+            _, ids = moe._topk_gates(logits, k, "sample_sort")
+            _, order = torch.sort(torch.softmax(logits, dim=-1), dim=-1,
+                                  descending=True, stable=True)
+            if not torch.equal(ids.long(), order[:, :k]):
+                raise AssertionError(f"router ids on {tuple(logits.shape)} differ "
+                                     "from a stable descending torch.sort")
+            flat = ids.reshape(-1)
+            perm = bucket_sort.argsort(flat, moe._DISPATCH_SORT_CFG, device=flat.device)
+            if not torch.equal(perm.long(), torch.argsort(flat, stable=True)):
+                raise AssertionError(f"dispatch permutation of {flat.numel()} ids "
+                                     "differs from torch.argsort(stable=True)")
+    print(f"serving: layer 0's router ids and dispatch permutation equal the "
+          f"library's at {tokens.numel()} and {tokens.shape[0]} tokens")
+
+
+def serve_once(model, tokens, cfg, dispatch, seed, totals, init_s):
+    """One counted, timed ``serve.generate`` with ``dispatch``; its
+    ``{"serving": ...}`` line.  Returns (tokens, prefill logits) on the
+    host."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api, meta
+
+    run = SERVE_RUN
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
+    n_pre = run["requests"] * run["prompt_len"]
+    spans, calls = SortSpans(), []
+    # A short uncounted serve first, so that the timed one finds the
+    # library's kernels loaded and its workspaces allocated.
+    serve.generate(model, tokens, cfg, gen=2, topk=run["topk"],
+                   temperature=run["temperature"],
+                   generator=torch.Generator(device=tokens.device).manual_seed(seed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=tokens.device).manual_seed(seed + 1)
+    with spans.patched(), library_sorts(calls):
+        out, counts = counted(lambda: serve.generate(
+            model, tokens, cfg, gen=run["gen"], topk=run["topk"],
+            temperature=run["temperature"], generator=gen), totals)
+    peak = torch.cuda.max_memory_allocated()
+    want = serving_launches(cfg, run["requests"], run["prompt_len"], run["gen"],
+                            run["topk"])
+    expect_launches(f"serve {dispatch}", counts, want)
+    if dispatch == "sample_sort" and calls:
+        raise AssertionError(f"serve sample_sort called library sorts {calls}")
+    if not bool(spans.finite) or not bool(torch.isfinite(out.prefill_logits).all()):
+        raise AssertionError(f"serve {dispatch}: a logit is not finite")
+    toks = out.tokens.cpu()
+    if toks.shape != (run["requests"], run["gen"]) or not bool(
+            ((toks >= 0) & (toks < cfg.padded_vocab)).all()):
+        raise AssertionError(f"serve {dispatch}: token ids {toks}")
+    steps = run["gen"] - 1
+    k = cfg.moe.top_k
+    decode_ms = out.decode_s * 1e3 / steps
+    router_pre = spans.ms("router", n_pre)
+    dispatch_pre = spans.ms("dispatch", n_pre * k)
+    router_dec = spans.ms("router", run["requests"]) / steps
+    dispatch_dec = spans.ms("dispatch", run["requests"] * k) / steps
+    sampler_dec = spans.ms("sampler", skip=1) / steps
+    params = sum(p.numel() for p in model.parameters())
+    print(json.dumps({"serving": {
+        "arch": cfg.name, "dispatch": dispatch, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "dtype": cfg.dtype,
+        "params": params, "template_params": meta.count_params(api.template(cfg)),
+        "param_gb": sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9,
+        **run, "cold_init_s": init_s,
+        "prefill_ms": out.prefill_s * 1e3, "decode_ms_per_token": decode_ms,
+        "peak_gb": peak / 1e9, "launches": counts,
+        "sort_ms_prefill": {"router": router_pre, "dispatch": dispatch_pre,
+                            "share": (router_pre + dispatch_pre) / (out.prefill_s * 1e3)},
+        "sort_ms_per_decode_token": {
+            "router": router_dec, "dispatch": dispatch_dec, "sampler": sampler_dec,
+            "share": (router_dec + dispatch_dec + sampler_dec) / decode_ms},
+        "first_sample_ms": spans.ms("sampler") - spans.ms("sampler", skip=1),
+        "tokens_row0": toks[0].tolist(),
+    }}))
+    return toks, out.prefill_logits.cpu()
+
+
+def profile_serving(model, tokens, cfg):
+    """:func:`device_profile` of one prefill and of one decode step with
+    its sampling."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    s = SERVE_RUN["prompt_len"]
+    gen = torch.Generator(device=tokens.device).manual_seed(0)
+
+    def prefill():
+        return api.prefill(model, {"tokens": tokens}, cfg, s + 1)
+
+    _, caches = prefill()
+    tok = torch.zeros((tokens.shape[0], 1), dtype=torch.int32, device=tokens.device)
+
+    def decode():
+        logits, _ = api.decode_step(model, tok, caches, s, cfg)
+        return serve.sample_topk(logits, SERVE_RUN["topk"], SERVE_RUN["temperature"], gen)
+
+    for name, fn in (("prefill", prefill), ("decode step + sampling", decode)):
+        print(json.dumps({"serving_profile": {
+            "arch": cfg.name, "dispatch": cfg.moe.dispatch, "step": name,
+            **device_profile(fn, top_n=12)}}))
+
+
+def smoke_card_vs_cpu(seed):
+    """The smoke config, float32, the same weights on both devices:
+    prefill and SMOKE_DECODE_STEPS greedy decode steps on the card
+    (kernels) and on the CPU (plain versions) agree within SMOKE_TOL, and
+    the greedy tokens are equal."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import api, meta
+    from repro_torch.models.transformer import CausalLM
+
+    cfg = configs.get_smoke(SERVE_ARCH)
+    params = meta.init_params(api.template(cfg), torch.Generator().manual_seed(seed), "cpu")
+    models = {"cpu": CausalLM(cfg, params),
+              "card": CausalLM(cfg, tree_map(lambda t: t.to("cuda"), params))}
+    prompt = torch.from_numpy(serve.prompts(cfg, 4, 32))
+    cache_len = prompt.shape[1] + SMOKE_DECODE_STEPS
+    logits, toks = {}, {}
+    for name, model in models.items():
+        dev = "cuda" if name == "card" else "cpu"
+        lg, caches = api.prefill(model, {"tokens": prompt.to(dev)}, cfg, cache_len)
+        steps, tok = [lg.cpu()], [lg.argmax(-1)]
+        for i in range(SMOKE_DECODE_STEPS):
+            lg, caches = api.decode_step(model, tok[-1][:, None], caches,
+                                         prompt.shape[1] + i, cfg)
+            steps.append(lg.cpu())
+            tok.append(lg.argmax(-1))
+        logits[name], toks[name] = steps, torch.stack([t.cpu() for t in tok], 1)
+    err = max(float((a - b).abs().max()) for a, b in zip(logits["card"], logits["cpu"]))
+    ok = all(torch.allclose(a, b, rtol=SMOKE_TOL, atol=SMOKE_TOL)
+             for a, b in zip(logits["card"], logits["cpu"]))
+    if not ok or not torch.equal(toks["card"], toks["cpu"]):
+        raise AssertionError(f"smoke serve: card and CPU differ (max abs {err})")
+    print(json.dumps({"serving_smoke_card_vs_cpu": {
+        "arch": cfg.name, "steps": 1 + SMOKE_DECODE_STEPS, "max_abs_err": err,
+        "tolerance": SMOKE_TOL, "greedy_tokens_equal": True}}))
+
+
+def raw_bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits as integers, for bit-for-bit comparisons."""
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def tree_map(fn, tree):
+    """fn over the tensors of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def serving_phase(totals, seed):
+    """Qwen3-MoE-30B-A3B at full width and depth (bfloat16, random weights
+    drawn on the card from ``seed``) served through ``serve.generate`` once
+    with each dispatch: launches held to the plans, the three prefill
+    logits and sampled tokens bit-identical, the sampler's top-k held to
+    the plain version; then the smoke config on the card against the CPU.
+    The model is freed before the phase ends."""
+    from repro_torch import configs
+    from repro_torch.core.key_codec import codec_for
+    from repro_torch.core.partial_sort import topk_batched
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    try:
+        run, cfg = SERVE_RUN, configs.get_config(SERVE_ARCH).model
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tokens = torch.from_numpy(
+            serve.prompts(cfg, run["requests"], run["prompt_len"])).cuda()
+        check_router_and_dispatch(model, tokens, cfg)
+        served = {d: serve_once(model, tokens, cfg, d, seed, totals, init_s)
+                  for d in SERVE_DISPATCHES}
+        base_toks, base_logits = served["sample_sort"]
+        for d, (toks, logits) in served.items():
+            if not (torch.equal(toks, base_toks)
+                    and torch.equal(raw_bits(logits), raw_bits(base_logits))):
+                raise AssertionError(f"serve {d} differs from sample_sort")
+        logits = base_logits.cuda()
+        vals, idx = topk_batched(logits, run["topk"], serve.sampler_config(), device="cuda")
+        codec = codec_for(logits.dtype, descending=True)
+        tw, ti = ref.topk_desc(codec.encode(logits), run["topk"])
+        err = max_abs_err((raw_bits(vals), idx), (raw_bits(codec.decode(tw)), ti))
+        if err:
+            raise AssertionError("the sampler's top-k differs from its plain version")
+        print(json.dumps({"serving_identity": {
+            "dispatches": list(SERVE_DISPATCHES), "prefill_logits_bit_identical": True,
+            "tokens_identical": True, "sampler_topk_max_abs_err": err}}))
+        profile_serving(model, tokens, cfg)
+        del model, tokens, logits, vals, idx, served
+        gc.collect()
+        torch.cuda.empty_cache()
+        smoke_card_vs_cpu(seed)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1978,6 +2314,7 @@ def main() -> int:
     comparison_phase(rng, totals)
     autotune_phase(rng, totals)
     distributed_phase(rng, totals)
+    serving_phase(totals, args.seed)
 
     rows = [kernel_row(*entry, gen, totals[entry[0]])
             for entry in kernel_table()]

@@ -1,1 +1,2 @@
-"""Process groups for the distributed sort (``launch/mesh.py``)."""
+"""Process groups for the distributed sort (``launch/mesh.py``) and the
+server loop (``launch/serve.py``)."""

@@ -671,3 +671,140 @@ def test_two_rank_sort_on_the_card(cuda, tmp_path):
         assert fault["error"] is not None, "the double fault did not raise"
         assert fault["error"]["site"].startswith("collective.exchange[D=2]:ShardPlan(")
         assert fault["log"] == ["retry"] and fault["calls"] == []
+
+
+# ----------------------------------------------------------------------
+# Serving: the attention + MoE decoder on the card
+# ----------------------------------------------------------------------
+
+
+def test_smoke_serve_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """The smoke config (float32) with the same weights on both devices:
+    prefill and four greedy decode steps through the kernels on the card
+    and the plain versions on the CPU agree within 1e-4 with TF32 off (the
+    same ops summed in other orders over two layers), and the greedy
+    tokens are equal."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import api, meta
+    from repro_torch.models.transformer import CausalLM
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for arch in ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"):
+        cfg = configs.get_smoke(arch)
+        params = meta.init_params(api.template(cfg), torch.Generator().manual_seed(0), "cpu")
+        card = CausalLM(cfg, _tree_to(params, "cuda"))
+        host = CausalLM(cfg, params)
+        prompt = torch.from_numpy(serve.prompts(cfg, 4, 40))
+        lc, cc = api.prefill(card, {"tokens": prompt.cuda()}, cfg, 44)
+        lh, ch = api.prefill(host, {"tokens": prompt}, cfg, 44)
+        for i in range(5):
+            torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-4)
+            tc, th = lc.argmax(-1), lh.argmax(-1)
+            assert torch.equal(tc.cpu(), th)
+            if i < 4:
+                lc, cc = api.decode_step(card, tc[:, None], cc, 40 + i, cfg)
+                lh, ch = api.decode_step(host, th[:, None], ch, 40 + i, cfg)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_dispatches_are_bit_identical_on_the_card(cuda):
+    """Qwen3-MoE-30B-A3B at full width, two layers deep, bfloat16: a serve
+    with each dispatch (K4 and the sample sort; a stable library sort and
+    argsort; the one-hot rank) gives bit-identical prefill logits and the
+    same sampled tokens; the 16,384 prefill ids take a bucket round."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    full = configs.get_config("qwen3-moe-30b-a3b").model
+    tokens = torch.from_numpy(serve.prompts(full, 2, 1024)).cuda()
+    model, outs = None, {}
+    for dispatch in ("sample_sort", "xla_sort", "onehot"):
+        cfg = dataclasses.replace(full, n_layers=2, moe=dataclasses.replace(
+            full.moe, dispatch=dispatch))
+        if model is None:
+            model = api.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+        outs[dispatch] = serve.generate(
+            model, tokens, cfg, gen=4, topk=8, temperature=0.8,
+            generator=torch.Generator("cuda").manual_seed(1))
+    base = outs["sample_sort"]
+    assert bool(torch.isfinite(base.prefill_logits).all())
+    for out in outs.values():
+        assert torch.equal(out.prefill_logits.view(torch.int16),
+                           base.prefill_logits.view(torch.int16))
+        assert torch.equal(out.tokens, base.tokens)
+
+
+def test_new_entry_points_default_to_cuda():
+    """device=None means "cuda": on a card the model, its caches and the
+    interop land there; without one each raises (this runs on the CPU)."""
+    from repro_torch import configs, interop
+    from repro_torch.launch import serve
+    from repro_torch.models import api, meta
+
+    cfg = configs.get_smoke("qwen3-moe-30b-a3b")
+    host = api.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    tree = interop.params_to_jax(host)
+    tpl = api.template(cfg)
+    if not torch.cuda.is_available():
+        for call in (lambda: api.init_model(cfg, torch.Generator()),
+                     lambda: meta.init_params(tpl, torch.Generator()),
+                     lambda: api.init_cache(cfg, 2, 8),
+                     lambda: interop.params_from_jax(tree, cfg),
+                     lambda: serve.main(["--arch", cfg.name[:-len("-smoke")], "--smoke"])):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+        return
+    model = api.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+    assert all(p.is_cuda for p in model.parameters())
+    assert all(c["k"].is_cuda for c in api.init_cache(cfg, 2, 8))
+    assert all(p.is_cuda for p in interop.params_from_jax(tree, cfg).parameters())
+
+
+def test_serving_faults_retry_then_raise_on_the_card(cuda, monkeypatch):
+    """A serve's dispatch sort is guarded as every sort on the card is
+    (ROADMAP.md D8): a failed launch is retried once with the same plan,
+    and the serve's tokens are those of a clean serve; a second failure
+    raises a SortRuntimeError out of the serve.  No library sort runs."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import faults, guard
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    full = configs.get_config("qwen3-moe-30b-a3b").model
+    cfg = dataclasses.replace(full, n_layers=1)
+    model = api.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+    tokens = torch.from_numpy(serve.prompts(cfg, 2, 1024)).cuda()
+
+    def run():
+        return serve.generate(model, tokens, cfg, gen=3, topk=8, temperature=0.8,
+                              generator=torch.Generator("cuda").manual_seed(1)).tokens
+
+    clean = run()
+    calls = count_library_sorts(monkeypatch)
+    guard.clear_degradation_log()
+    faults.reset()
+    try:
+        with pytest.warns(guard.DegradationWarning):
+            with faults.inject("kernel.launch", on_hit=1, count=1):
+                assert torch.equal(run(), clean)
+        assert [ev.action for ev in guard.degradation_log()] == ["retry"]
+        guard.clear_degradation_log()
+        with pytest.warns(guard.DegradationWarning):
+            with faults.inject("kernel.launch", on_hit=1, count=2):
+                with pytest.raises(guard.SortRuntimeError, match="tile_sort"):
+                    run()
+    finally:
+        faults.reset()
+        guard.clear_degradation_log()
+    assert calls == []
