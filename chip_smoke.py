@@ -121,6 +121,31 @@ K5 radix sort, K6 merge sort) and then
      freed; then the smoke config (float32, the same weights on both
      devices) through prefill and 4 greedy decode steps on the card and
      on the CPU: logits within 1e-4, the same tokens;
+   - training: ``qwen3-moe-30b-a3b`` at full width, its depth cut from 48
+     to 4 layers (3,077,588,992 parameters drawn on the card from
+     ``--seed`` in bfloat16, float32 moments, ``remat="full"``,
+     ``dispatch="sample_sort"``, TF32 off), trained through
+     ``launch/train``'s parts (``build_train_step``, ``TrainDriver``,
+     ``SyntheticDataset(seed=0)``, AdamW with 6 total and 1 warmup
+     steps) on 2 x 4,096 tokens a step (65,536 routed slots, capacity
+     768): a straight run of 6 steps, every loss finite, the launches
+     held to the plans (K4 8, K1 24, K2 8 a step: each MoE layer's
+     router and dispatch sort in the forward and again in the recompute;
+     no library sort), a ``{"training": ...}`` line (step ms from CUDA
+     events, the median of the steps after the first, tokens/s, peak
+     GB, the forward's, backward's and optimizer's ms and share, the
+     router's and dispatch's ms a step and their share, the launches,
+     losses and gradient norms) and a ``{"training_profile": ...}`` line
+     of one more step; then a run stopped after its step-3 checkpoint
+     (30.8 GB, in a temporary directory) and a new driver that resumes
+     from it to step 6: the resumed step's loss bit-equal to the
+     straight run's, the later ones within 1e-3; step 0 with "xla_sort"
+     and "onehot" from the same weights: the loss bit-identical, the
+     gradient norm within 1e-4; ``python -m repro_torch.launch.train
+     --arch qwen3-moe-30b-a3b --smoke --steps 20 --batch 8 --seq 128`` in
+     a subprocess on the card, its last loss finite; and the smoke
+     config's one train step on the card against the CPU from the same
+     weights: the loss within 1e-5, the parameters within 2 lr;
    every run of these paths has its kernel launches counted, and they
    must be those its plan calls for;
 5. prints the script's wall time, then a JSON line of per-kernel numbers
@@ -156,6 +181,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1955,6 +1981,24 @@ def serving_launches(cfg, requests, prompt_len, gen, topk) -> dict:
     return dict(collections.Counter(name for name, *_ in walk))
 
 
+def training_launches(cfg, tokens: int) -> dict:
+    """Launches per kernel one train step of ``tokens`` tokens calls for,
+    from the plans: per layer the router (K4) and the dispatch argsort's
+    walk ("sample_sort" only; the plan of the serving prefill's layer at
+    the same token count), in the forward and once more in the recompute
+    under remat "full" or "dots"; the backward launches none."""
+    from repro_torch.core import build_plan
+    from repro_torch.core.plan import kernel_launches
+    from repro_torch.models import moe
+
+    if cfg.moe.dispatch != "sample_sort":
+        return {}
+    plan = build_plan(tokens * cfg.moe.top_k, torch.int32, moe._DISPATCH_SORT_CFG)
+    passes = 1 if cfg.remat == "none" else 2
+    walk = passes * cfg.n_layers * ([("topk",)] + kernel_launches(plan.root))
+    return dict(collections.Counter(name for name, *_ in walk))
+
+
 class SortSpans:
     """CUDA events around every router top-k (``moe._topk_gates``),
     dispatch rank (``moe._rank_in_expert_sort`` / ``_onehot``) and sampler
@@ -2226,6 +2270,321 @@ def serving_phase(totals, seed):
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# Training: Qwen3-MoE-30B-A3B at full width, depth cut
+# ----------------------------------------------------------------------
+
+# Full width, 4 of 48 layers (3,077,588,992 parameters: the train state
+# of all 48 is about 360 GB); train_4k's sequence, batch 2.  A checkpoint
+# of that state is 30.8 GB, so the phase writes one, keeping its disk
+# writes bounded: the straight run and the resumed driver save none
+# (ckpt_every 0), the run they are compared with saves at step
+# ckpt_every and stops there.
+TRAIN_LAYERS = 4
+TRAIN_RUN = dict(batch=2, seq=4096, steps=6, ckpt_every=3)
+TRAIN_CLI = ("--arch", SERVE_ARCH, "--smoke", "--steps", "20", "--batch", "8",
+             "--seq", "128")
+# The resumed run after its first step, and the dispatches' gradient
+# norms: the backward's scatter-adds may round differently from run to
+# run (PERF.md §5); the resumed step and the dispatches' losses are held
+# bit for bit.
+TRAIN_RESUME_TOL = 1e-3
+TRAIN_GNORM_RTOL = 1e-4
+# Card against CPU, the smoke config in float32, TF32 off, one step:
+# the loss within 1e-5; the parameters within 2 lr (an AdamW step moves
+# an element by at most about lr, and a near-zero gradient may flip its
+# sign).
+TRAIN_SMOKE_LOSS_TOL = 1e-5
+
+
+class TrainSpans:
+    """CUDA events around each train step, and inside it around the
+    forward (``api.loss_fn``), the backward (``Tensor.backward``) and the
+    optimizer (``clip_by_global_norm`` and ``adamw_update``) while
+    :meth:`patched` is on."""
+
+    def __init__(self):
+        self.spans = []  # (kind, start, end)
+
+    def span(self, kind, fn):
+        def call(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            self.spans.append((kind, a, b))
+            return out
+        return call
+
+    @contextlib.contextmanager
+    def patched(self):
+        from repro_torch.launch import steps
+        from repro_torch.models import api
+
+        targets = [(api, "loss_fn", "forward"), (torch.Tensor, "backward", "backward"),
+                   (steps, "clip_by_global_norm", "optimizer"),
+                   (steps, "adamw_update", "optimizer")]
+        saved = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+        for (owner, name, kind), (_, _, fn) in zip(targets, saved):
+            setattr(owner, name, self.span(kind, fn))
+        try:
+            yield self
+        finally:
+            for owner, name, fn in saved:
+                setattr(owner, name, fn)
+
+    def per_step(self, kind) -> list[float]:
+        """ms of ``kind`` a step, in step order (the spans between two
+        "step" spans summed)."""
+        out, acc = [], 0.0
+        for k, a, b in self.spans:
+            if k == "step":
+                out.append(acc if kind != "step" else a.elapsed_time(b))
+                acc = 0.0
+            elif k == kind:
+                acc += a.elapsed_time(b)
+        return out
+
+
+def train_driver(cfg, opt, path, seed, ckpt_every, spans=None, log=print):
+    """A ``TrainDriver`` over ``launch/steps.build_train_step`` on the card,
+    the weights drawn there from ``seed``, the data ``SyntheticDataset``
+    (seed 0), as ``launch/train.py`` assembles it."""
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api, meta
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import TrainDriver
+
+    run = TRAIN_RUN
+    step = build_train_step(cfg, opt)
+    if spans is not None:
+        step = spans.span("step", step)
+
+    def step_fn(state, batch):
+        params, opt_state, metrics = step(*state, batch)
+        return (params, opt_state), metrics
+
+    def init_state():
+        params = meta.init_params(api.template(cfg),
+                                  torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        return (params, adamw_init(params, opt))
+
+    ds = SyntheticDataset(cfg.vocab, run["seq"], run["batch"], seed=0)
+    return TrainDriver(step_fn, init_state, ds, ckpt_dir=str(path),
+                       ckpt_every=ckpt_every, log_every=1, log_fn=log)
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_cli(tmp: Path) -> dict:
+    """``python -m repro_torch.launch.train`` with TRAIN_CLI on the card in
+    a subprocess; its last loss must be finite."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+         "--ckpt-dir", str(tmp / "cli")],
+        capture_output=True, text=True, timeout=600, cwd=root, env=env)
+    wall = time.perf_counter() - t0
+    done = [ln for ln in proc.stdout.splitlines() if ln.startswith("[train] done: loss")]
+    if proc.returncode or not done:
+        raise AssertionError(f"launch.train failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    first, last = (float(x) for x in done[-1].split("loss ")[1].split(" -> "))
+    if not math.isfinite(last):
+        raise AssertionError(f"launch.train's last loss is {last}")
+    return {"args": list(TRAIN_CLI), "wall_s": wall, "first_loss": first,
+            "last_loss": last, "train_lines": sum(ln.startswith("[train]")
+                                                  for ln in proc.stdout.splitlines())}
+
+
+def train_smoke_card_vs_cpu(seed) -> dict:
+    """The smoke config, float32, the same weights and batch on both
+    devices: one ``build_train_step`` step on the card (kernels) and on
+    the CPU (plain versions)."""
+    from repro_torch import configs
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api, meta
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves
+
+    cfg = configs.get_smoke(SERVE_ARCH)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=1)
+    cpu = meta.init_params(api.template(cfg), torch.Generator().manual_seed(seed), "cpu")
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    batch = SyntheticDataset(cfg.vocab, 64, 4, seed=0).batch_at(0)
+    out = {}
+    for name, params in (("cpu", cpu), ("card", card)):
+        _, _, m = build_train_step(cfg, opt)(params, adamw_init(params, opt), batch)
+        out[name] = float(m["loss"])
+    loss_err = abs(out["card"] - out["cpu"])
+    param_err = max(float((a.cpu() - b).abs().max())
+                    for (_, a), (_, b) in zip(leaves(card), leaves(cpu)))
+    if loss_err > TRAIN_SMOKE_LOSS_TOL or param_err > 2 * opt.lr:
+        raise AssertionError(f"smoke train step: card and CPU differ (loss {loss_err}, "
+                             f"params {param_err})")
+    return {"arch": cfg.name, "loss_cpu": out["cpu"], "loss_card": out["card"],
+            "loss_abs_err": loss_err, "loss_tolerance": TRAIN_SMOKE_LOSS_TOL,
+            "param_max_abs_err": param_err, "param_bound": 2 * opt.lr}
+
+
+def training_phase(totals, seed):
+    """Qwen3-MoE-30B-A3B at full width and TRAIN_LAYERS layers trained on the
+    card through ``launch/train``'s parts: a straight run of TRAIN_RUN
+    steps (launches held to the plans, every loss finite, timed and
+    profiled), a run stopped at the first checkpoint and resumed by a new
+    driver, one step with each other dispatch, the CLI in a subprocess,
+    and the smoke config's step on the card against the CPU."""
+    from repro_torch import configs
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api, meta
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves
+
+    arch = configs.get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(arch.model, n_layers=TRAIN_LAYERS)
+    run = TRAIN_RUN
+    tokens = run["batch"] * run["seq"]
+    opt = OptimizerConfig(total_steps=run["steps"], warmup_steps=1,
+                          moment_dtype=arch.moment_dtype)
+    per_step = training_launches(cfg, tokens)
+    # The forward pass at these slots walks the serving prefill's plan.
+    fwd = {k: v // 2 for k, v in per_step.items()}
+    want_fwd = training_launches(dataclasses.replace(cfg, remat="none"), tokens)
+    if fwd != want_fwd or set(per_step) != {"topk", "tile_sort", "splitter_partition"}:
+        raise AssertionError(f"training plan launches {per_step}")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    free_card()
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    tmp = Path(tmp_dir.name)
+    try:
+        # The straight run.
+        spans, sorts, calls = TrainSpans(), SortSpans(), []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with spans.patched(), sorts.patched(), library_sorts(calls):
+            (state, hist), counts = counted(
+                lambda: train_driver(cfg, opt, tmp / "straight", seed, 0, spans).run(
+                    run["steps"]), totals)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        expect_launches("train", counts, {k: v * run["steps"] for k, v in per_step.items()})
+        if calls:
+            raise AssertionError(f"training called library sorts {calls}")
+        losses = [h["loss"] for h in hist]
+        if len(losses) != run["steps"] or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"training losses {losses}")
+        params, opt_state = state
+        n_params = sum(t.numel() for _, t in leaves(params))
+        batch = SyntheticDataset(cfg.vocab, run["seq"], run["batch"], seed=0).batch_at(0)
+        profile = device_profile(lambda: build_train_step(cfg, opt)(params, opt_state, batch),
+                                 top_n=12)
+        del state, params, opt_state
+        free_card()
+
+        step_ms = spans.per_step("step")[1:]
+        parts = {k: statistics.median(spans.per_step(k)[1:])
+                 for k in ("forward", "backward", "optimizer")}
+        med = statistics.median(step_ms)
+        k = cfg.moe.top_k
+        router = [a.elapsed_time(b) for kind, r, a, b in sorts.spans if kind == "router"]
+        dispatch = [a.elapsed_time(b) for kind, r, a, b in sorts.spans if kind == "dispatch"]
+        per = len(router) // run["steps"]
+        router_ms = statistics.median(sum(router[i:i + per]) for i in range(per, len(router), per))
+        dispatch_ms = statistics.median(
+            sum(dispatch[i:i + per]) for i in range(per, len(dispatch), per))
+        print(json.dumps({"training": {
+            "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "experts": cfg.moe.n_experts, "top_k": k, "vocab": cfg.vocab,
+            "params": n_params, "template_params": meta.count_params(api.template(cfg)),
+            "param_dtype": cfg.param_dtype, "moment_dtype": opt.moment_dtype,
+            "remat": cfg.remat, "dispatch": cfg.moe.dispatch, **run,
+            "tokens_per_step": tokens, "routed_slots": tokens * k,
+            "step_ms_median": med, "step_ms": spans.per_step("step"),
+            "tokens_per_s": tokens / med * 1e3, "peak_gb": peak / 1e9,
+            "run_wall_s": wall,
+            "ms": parts, "share": {kk: v / med for kk, v in parts.items()},
+            "router_ms": router_ms, "dispatch_ms": dispatch_ms,
+            "sort_share": (router_ms + dispatch_ms) / med,
+            "launches_per_step": per_step, "launches": counts,
+            "losses": losses, "gnorms": [h["gnorm"] for h in hist],
+            "driver_dt_s": [h["dt"] for h in hist],
+        }}))
+        print(json.dumps({"training_profile": {"arch": cfg.name, "step": "train step",
+                                               **profile}}))
+
+        # Stopped after the first checkpoint, resumed by a new driver.
+        (part, h1), c1 = counted(lambda: train_driver(
+            cfg, opt, tmp / "resume", seed, run["ckpt_every"], log=lambda *_: None).run(
+                run["ckpt_every"]), totals)
+        del part
+        free_card()
+        logs = []
+        t0 = time.perf_counter()
+        (rest, h2), c2 = counted(lambda: train_driver(
+            cfg, opt, tmp / "resume", seed, 0, log=logs.append).run(run["steps"]), totals)
+        resume_s = time.perf_counter() - t0
+        del rest
+        free_card()
+        shutil.rmtree(tmp / "resume")
+        n1, n2 = run["ckpt_every"], run["steps"] - run["ckpt_every"]
+        expect_launches("train, first part", c1, {k: v * n1 for k, v in per_step.items()})
+        expect_launches("train, resumed", c2, {k: v * n2 for k, v in per_step.items()})
+        first = h2[0]
+        if (not any("resuming from checkpoint step 3" in ln for ln in logs)
+                or first["step"] != n1 or first["loss"] != hist[n1]["loss"]):
+            raise AssertionError(f"resumed step {first} differs from the straight run's "
+                                 f"{hist[n1]}")
+        later = max(abs(a["loss"] - b["loss"]) for a, b in zip(h2[1:], hist[n1 + 1:]))
+        if later > TRAIN_RESUME_TOL or [h["loss"] for h in h1] != losses[:n1]:
+            raise AssertionError(f"resumed run: later losses differ by {later}, first part "
+                                 f"{[h['loss'] for h in h1]} against {losses[:n1]}")
+        print(json.dumps({"training_resume": {
+            "stopped_after_step": n1, "resumed_step_loss": first["loss"],
+            "straight_step_loss": hist[n1]["loss"], "bit_equal": True,
+            "first_part_bit_equal": True, "later_max_abs_diff": later,
+            "tolerance": TRAIN_RESUME_TOL, "resumed_run_s": resume_s}}))
+
+        # Step 0 with each other dispatch, from the same weights.
+        steps0 = {"sample_sort": (hist[0]["loss"], hist[0]["gnorm"])}
+        for d in SERVE_DISPATCHES[1:]:
+            cfg_d = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=d))
+            params = meta.init_params(api.template(cfg_d),
+                                      torch.Generator(device="cuda").manual_seed(seed), "cuda")
+            (_, _, m), cd = counted(lambda: build_train_step(cfg_d, opt)(
+                params, adamw_init(params, opt), batch), totals)
+            expect_launches(f"train step {d}", cd, {})
+            steps0[d] = (float(m["loss"]), float(m["gnorm"]))
+            del params, m
+            free_card()
+        base_loss, base_gnorm = steps0["sample_sort"]
+        gn_err = max(abs(g - base_gnorm) / base_gnorm for _, g in steps0.values())
+        if any(loss != base_loss for loss, _ in steps0.values()) or gn_err > TRAIN_GNORM_RTOL:
+            raise AssertionError(f"step 0 differs across dispatches: {steps0}")
+        print(json.dumps({"training_dispatches": {
+            "step0": {d: {"loss": v[0], "gnorm": v[1]} for d, v in steps0.items()},
+            "losses_bit_identical": True, "gnorm_max_rel_diff": gn_err,
+            "gnorm_tolerance": TRAIN_GNORM_RTOL}}))
+
+        print(json.dumps({"training_cli": train_cli(tmp)}))
+        print(json.dumps({"training_smoke_card_vs_cpu": train_smoke_card_vs_cpu(seed)}))
+    finally:
+        tmp_dir.cleanup()
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        free_card()
+
+
 def main() -> int:
     start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2315,6 +2674,7 @@ def main() -> int:
     autotune_phase(rng, totals)
     distributed_phase(rng, totals)
     serving_phase(totals, args.seed)
+    training_phase(totals, args.seed)
 
     rows = [kernel_row(*entry, gen, totals[entry[0]])
             for entry in kernel_table()]

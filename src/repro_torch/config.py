@@ -1,14 +1,17 @@
-"""Model configuration of the port's serving substrate.
+"""Configuration of the port's model, training and parallel layout.
 
-The port's own copy of the JAX package's model dataclasses, field for
-field with the same defaults and properties: one ``ModelConfig`` covers
-an architecture through a periodic layer pattern, each ``LayerSlot`` a
+The port's own copy of the JAX package's dataclasses, field for field
+with the same defaults and properties: one ``ModelConfig`` covers an
+architecture through a periodic layer pattern, each ``LayerSlot`` a
 (mixer, ffn) pair, the decoder stack ``layer_pattern`` repeated
 ``n_layers / len(layer_pattern)`` times.  ``MLAConfig`` and
 ``SSMConfig`` are shapes only here: the port runs the ``attn`` mixer
-with the ``dense`` and ``moe`` ffns (ROADMAP.md Queue 1 item 12 brings
-MLA and Mamba-2).  Parallelism, optimizer and training configs belong
-to sharding and training, item 12 as well.
+with the ``dense`` and ``moe`` ffns (ROADMAP.md Queue 1 item 12d brings
+MLA and Mamba-2).  ``OptimizerConfig`` and ``TrainConfig`` drive
+training (``launch/steps.py``, ``launch/train.py``).  ``ParallelConfig``
+carries its fields only: the training step reads ``grad_accum``, and the
+port's models run on one device (ROADMAP.md Queue 3 D19); the mesh and
+sharding wait for item 12e.
 """
 
 from __future__ import annotations
@@ -133,6 +136,47 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh and sharding policy (fields only in the port: item 12e)."""
+
+    mesh_shape: tuple[int, ...] = (16, 16)
+    mesh_axes: tuple[str, ...] = ("data", "model")
+    fsdp: bool = False  # shard the "embed" dim of params over data axis
+    fsdp_axes: tuple[str, ...] = ("data",)
+    remat_scan: bool = True
+    grad_accum: int = 1  # microbatches summed into one step
+    compress_grads: bool = False  # int8 all-reduce w/ error feedback (DP path)
+
+    @property
+    def batch_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in self.mesh_axes if a in ("pod", "data"))
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    moment_dtype: str = "float32"  # "bfloat16" for low-mem (jamba-398b)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 200
+    log_every: int = 10
+    ckpt_every: int = 100
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_keep: int = 3
+    seed: int = 0
+    optimizer: OptimizerConfig = OptimizerConfig()
 
 
 @dataclasses.dataclass(frozen=True)

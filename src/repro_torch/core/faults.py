@@ -17,9 +17,9 @@ site once per row-sort launch of its plan.  ``core/autotune.py`` checks
 does (the distributed tuner once per attempt on every rank).
 ``core/distributed_sort.py`` checks ``collective.exchange`` once per
 attempt of a rank, just before the bucket exchange; the ranks agree on a
-failure before any of them retries.  ``pipeline.producer`` stays
-registered for the module that will check it (ROADMAP.md Queue 1 item
-12).
+failure before any of them retries.  ``data/pipeline.py``'s prefetch
+thread checks ``pipeline.producer`` before each batch it makes, as the
+JAX package's does; the consumer gets the failure as a ``ProducerError``.
 
 Two ways to arm a rule:
 
@@ -61,7 +61,7 @@ SITES = (
     "cache.save",           # plan-cache store persist (core/autotune.py)
     "autotune.measure",     # candidate measurement (core/autotune.py)
     "collective.exchange",  # all-to-all of the distributed sort (core/distributed_sort.py)
-    "pipeline.producer",    # prefetch thread of the data pipeline (not ported)
+    "pipeline.producer",    # prefetch thread of the data pipeline (data/pipeline.py)
 )
 
 _ENV = "REPRO_SORT_FAULTS"

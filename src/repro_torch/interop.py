@@ -4,13 +4,17 @@ A sort has no weights: what crosses is the canonical key words and the
 plan.  The JAX package carries words as uint32, the port as biased
 int32 (``w ^ 0x80000000``); numpy is the common ground.  A model's
 weights cross as the JAX package's parameter tree of numpy arrays
-(:func:`params_from_jax`, :func:`params_to_jax`).
+(:func:`params_from_jax`, :func:`params_to_jax`), and a train state as
+its ``(params, opt_state)`` trees (:func:`train_state_from_jax`,
+:func:`opt_state_from_jax`, :func:`opt_state_to_jax`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.tree import get, leaves, map_tree
 
 _BIAS = np.uint32(0x80000000)
 
@@ -79,6 +83,45 @@ def shard_plan_tree(plan) -> tuple:
     )
 
 
+def _put(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _tensor_from_numpy(arr, dtype: torch.dtype, device) -> torch.Tensor:
+    """A float numpy array (bfloat16 included) cast to ``dtype`` in a
+    tensor on ``device``, one slice of its first axis at a time."""
+    out = torch.empty(arr.shape, dtype=dtype, device=device)
+    for i, dst in enumerate(out if out.dim() > 1 else (out,)):
+        part = arr[i] if out.dim() > 1 else arr
+        dst.copy_(torch.from_numpy(np.array(part, np.float32)))
+    return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """float32 and integer tensors as they are, bfloat16 widened to
+    float32 (exact)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _param_tree_from_jax(tree, cfg, device, dtype=None) -> dict:
+    """The JAX package's parameter tree (numpy leaves) as tensors on
+    ``device``, each in the template's dtype or ``dtype``."""
+    from repro_torch.models import api
+    from repro_torch.models.meta import torch_dtype, tree_leaves
+
+    params = {}
+    for path, m in tree_leaves(api.template(cfg)):
+        arr = get(tree, path)
+        if tuple(arr.shape) != m.shape:
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, template {m.shape}")
+        _put(params, path, _tensor_from_numpy(
+            arr, dtype if dtype is not None else torch_dtype(m.dtype), device))
+    return params
+
+
 def params_from_jax(tree, cfg, device=None):
     """The port's model (``models.transformer.CausalLM``) holding the JAX
     package's parameters: ``tree`` is its ``api.template(cfg)`` tree with
@@ -90,27 +133,9 @@ def params_from_jax(tree, cfg, device=None):
     ``api.init_model`` does.
     """
     from repro_torch.kernels.ops import resolve_device
-    from repro_torch.models import api
-    from repro_torch.models.meta import torch_dtype, tree_leaves
     from repro_torch.models.transformer import CausalLM
 
-    device = resolve_device(device)
-    params = {}
-    for path, m in tree_leaves(api.template(cfg)):
-        arr = tree
-        for k in path:
-            arr = arr[k]
-        if tuple(arr.shape) != m.shape:
-            raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, template {m.shape}")
-        out = torch.empty(m.shape, dtype=torch_dtype(m.dtype), device=device)
-        for i, dst in enumerate(out if out.dim() > 1 else (out,)):
-            part = arr[i] if out.dim() > 1 else arr
-            dst.copy_(torch.from_numpy(np.array(part, np.float32)))
-        node = params
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = out
-    return CausalLM(cfg, params)
+    return CausalLM(cfg, _param_tree_from_jax(tree, cfg, resolve_device(device)))
 
 
 def params_to_jax(model) -> dict:
@@ -118,27 +143,49 @@ def params_to_jax(model) -> dict:
     parameter tree of numpy arrays, the layers stacked per period again.
     float32 leaves come back as float32, bfloat16 ones widened to float32
     (exact)."""
-    from repro_torch.models.transformer import lm_template
-    from repro_torch.models.meta import tree_leaves
-
-    cfg = model.cfg
-    pat = len(cfg.layer_pattern)
-
-    def numpy(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-    tree = {}
-    for path, _ in tree_leaves(lm_template(cfg)):
-        if path[0] == "period":
-            slot = int(path[1][len("slot"):])
-            layers = model.layers[slot::pat]
-            leaf = np.stack([numpy(layer.get_parameter(".".join(path[2:])))
-                             for layer in layers])
+    tree, stacks = {}, {}
+    for path, period, p in model.param_slices():
+        if period is None:
+            _put(tree, path, _to_numpy(p))
         else:
-            leaf = numpy(model.get_parameter(".".join(path)))
-        node = tree
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
+            stacks.setdefault(path, []).append(_to_numpy(p))
+    for path, parts in stacks.items():
+        _put(tree, path, np.stack(parts))
     return tree
+
+
+def opt_state_from_jax(opt_state, cfg, device=None) -> dict:
+    """The JAX package's ``adamw_init`` state (``{"m", "v", "step"}``,
+    numpy leaves) as the port's: ``m`` and ``v`` trees of tensors in the
+    arrays' own dtype ("float32" or "bfloat16", the moment dtype) on
+    ``device`` (None = "cuda"), ``step`` an int32 0-dim tensor."""
+    from repro_torch.kernels.ops import resolve_device
+    from repro_torch.models.meta import torch_dtype
+
+    device = resolve_device(device)
+    mdt = torch_dtype(str(leaves(opt_state["m"])[0][1].dtype))
+    return {"m": _param_tree_from_jax(opt_state["m"], cfg, device, mdt),
+            "v": _param_tree_from_jax(opt_state["v"], cfg, device, mdt),
+            "step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def opt_state_to_jax(opt_state) -> dict:
+    """The inverse of :func:`opt_state_from_jax`: numpy leaves, bfloat16
+    moments widened to float32 (exact), ``step`` an int32 0-dim array."""
+    return {"m": map_tree(_to_numpy, opt_state["m"]),
+            "v": map_tree(_to_numpy, opt_state["v"]),
+            "step": np.asarray(int(opt_state["step"]), np.int32)}
+
+
+def train_state_from_jax(params, opt_state, cfg, device=None):
+    """The port's train state ``(params, opt_state)`` from the JAX
+    package's (numpy leaves): the stacked parameter tree in the
+    template's dtypes, which ``CausalLM(cfg, params)`` and
+    ``launch.steps.build_train_step`` view, and the optimizer state of
+    :func:`opt_state_from_jax`, both on ``device`` (None = "cuda")."""
+    from repro_torch.kernels.ops import resolve_device
+
+    device = resolve_device(device)
+    return (_param_tree_from_jax(params, cfg, device),
+            opt_state_from_jax(opt_state, cfg, device))

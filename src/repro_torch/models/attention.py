@@ -6,8 +6,9 @@ query and key blocks of ``cfg.attn_chunk`` with float32 running max and
 denominator, the scores and the value sums in float32 (the reference's
 ``preferred_element_type``), the softmax weights cast to the values'
 dtype first.  No fused attention operator is called, so the arithmetic
-stays the reference's.  MLA and cross-attention wait for ROADMAP.md
-Queue 1 item 12.
+stays the reference's.  ``gqa_forward`` is the training attention (no
+cache); its backward runs through autograd.  MLA and cross-attention
+wait for ROADMAP.md Queue 1 item 12d.
 
 The KV cache of a layer is a dict of (B, L, K, Dh) tensors; decode
 writes the new position in place, which equals the reference's
@@ -91,13 +92,21 @@ def chunked_attention(q, k, v, *, chunk: int, causal: bool, q_offset: int = 0):
         acc = torch.zeros((b, kh, g, cq, dv), device=dev)
         for kj in range(nk):
             kc, vc = kb[:, kj], vb[:, kj]
-            s = torch.einsum("bqkgd,bskd->bkgqs", qc, kc.float()).mul_(scale)
+            s = torch.einsum("bqkgd,bskd->bkgqs", qc, kc.float())
+            # In place when serving; under autograd the product is left
+            # as it is, since remat="dots" keeps it for the backward.
+            s = s * scale if torch.is_grad_enabled() else s.mul_(scale)
             kpos = kj * ck + torch.arange(ck, device=dev)
             mask = (kpos < sk0)[None, :]
             if causal:
                 mask = mask & (kpos[None, :] <= qpos[:, None])
             s.masked_fill_(~mask, -torch.inf)
-            m_new = torch.maximum(m, s.amax(dim=-1))
+            # The running max carries no gradient: the output does not
+            # depend on it (exactly; the reference differentiates
+            # through it and gets the same gradient up to rounding).
+            # Detached, s is saved by no op, so the in-place steps below
+            # hold under autograd, and only p is kept for the backward.
+            m_new = torch.maximum(m, s.detach().amax(dim=-1))
             p = s.sub_(m_new[..., None]).exp_()  # in place: s is not read again
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
@@ -109,6 +118,14 @@ def chunked_attention(q, k, v, *, chunk: int, causal: bool, q_offset: int = 0):
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, cq, h, dv))
     out = torch.cat(outs, dim=1) if nq > 1 else outs[0]
     return out[:, :sq0].to(q.dtype)
+
+
+def gqa_forward(p, x, cfg: ModelConfig, positions, causal: bool = True):
+    """Full-sequence self-attention (training)."""
+    q, k, v = _qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return _out(p, chunked_attention(q, k, v, chunk=cfg.attn_chunk, causal=causal), cfg)
 
 
 def gqa_prefill(p, x, cfg: ModelConfig, positions, cache_len: int):
@@ -147,6 +164,9 @@ def gqa_decode(p, x, cfg: ModelConfig, cache, pos: int):
 class GQAttention(ParamModule):
     """The attention mixer of a layer: parameters ``wq wk wv wo`` (and
     ``bq bk bv`` with ``cfg.attn_bias``) from :func:`gqa_template`."""
+
+    def forward(self, x, cfg: ModelConfig, positions):
+        return gqa_forward(self, x, cfg, positions)
 
     def prefill(self, x, cfg: ModelConfig, positions, cache_len: int):
         return gqa_prefill(self, x, cfg, positions, cache_len)

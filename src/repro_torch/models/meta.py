@@ -5,6 +5,19 @@ leaves, the JAX package's templates leaf for leaf (the decoder's layers
 stacked per period on a leading axis).  :func:`init_params` draws them
 on a device; :class:`ParamModule` holds a template's tensors as
 parameters named after its leaves, which the model's modules extend.
+
+Trainable parameters: the per-layer views are the autograd leaves.  A
+layer's parameter is a view of its period's slice of the stacked tensor
+(an ``nn.Parameter`` made from a view shares its storage), so the
+weights exist once, in the stacked tree that the optimizer and the
+checkpoint see, shaped as the reference's.  Its gradient is written
+into a view of a stacked gradient tensor that the training step binds
+to ``.grad`` beforehand (autograd accumulates into an existing ``.grad``
+in place), and the optimizer's moments are stacked tensors as well, so
+an in-place update of a stacked leaf writes through to every layer.
+The parameters are created with ``requires_grad=False``: serving keeps
+no gradient and the same memory; a trainer calls
+``model.requires_grad_(True)`` (``launch/steps.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +29,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.tree import leaves
 
 # Elements of one float32 draw in :func:`init_params` (1 GiB): a period
 # slice of the largest stacked weight fits, the whole stack never does.
@@ -53,9 +67,7 @@ def tree_map_meta(f, template):
 def tree_leaves(tree, prefix: tuple = ()):
     """(path, leaf) of every leaf of a nested dict, keys in sorted order
     (the order ``jax.tree.flatten`` gives a dict)."""
-    if not isinstance(tree, dict):
-        return [(prefix, tree)]
-    return [kv for k in sorted(tree) for kv in tree_leaves(tree[k], prefix + (k,))]
+    return leaves(tree, prefix)
 
 
 def count_params(template) -> int:
@@ -121,10 +133,11 @@ def init_params(template, generator: torch.Generator, device=None) -> dict:
 class ParamModule(nn.Module):
     """Parameters named after a template's leaves (a nested dict becomes
     a child module), taken from ``tensors`` (same structure, shapes and
-    dtypes; views are kept as views).  Indexing (``p["w"]``, ``"bq" in
-    p``) reads like the reference's parameter dicts, so the plain
-    functions take a module or a dict alike.  Parameters carry no
-    gradient: the port serves."""
+    dtypes; views are kept as views, sharing the tensors' storage).
+    Indexing (``p["w"]``, ``"bq" in p``) reads like the reference's
+    parameter dicts, so the plain functions take a module or a dict
+    alike.  The parameters start with ``requires_grad=False`` (serving);
+    ``requires_grad_(True)`` makes them trainable."""
 
     def __init__(self, template: dict, tensors: dict):
         super().__init__()

@@ -9,9 +9,9 @@ same whichever way the ranks are computed.
 
 Dispatches (``MoEConfig.dispatch``), as the reference tests them:
 
-* ``"sample_sort"``: the router's top-k is K4 (``kernels.ops.topk``),
-  the dispatch argsort the deterministic sample sort
-  (``core.bucket_sort.argsort``: K1, and K2 when the ids pass
+* ``"sample_sort"``: the router's top-k ids are K4's
+  (``kernels.ops.topk``), the dispatch argsort the deterministic sample
+  sort (``core.bucket_sort.argsort``: K1, and K2 when the ids pass
   ``direct_max``);
 * ``"onehot"``: a stable descending library sort for the top-k, and the
   rank within the expert from a cumsum over a one-hot (M, E) matrix;
@@ -20,6 +20,15 @@ Dispatches (``MoEConfig.dispatch``), as the reference tests them:
 
 The router's rows and the ids go to the sorts contiguous: the kernels
 take contiguous rows only (ROADMAP.md Queue 3 F1).
+
+Training: the gates carry the router's gradient on every route.  K4
+returns decoded key words, which carry none (nor do the reference's,
+whose codec's bitcast cuts the gradient: ROADMAP.md Queue 3 R8), so on
+the ``"sample_sort"`` route the gate values are taken from the
+probabilities at K4's ids (D21): the codec is a bijection on finite
+non-negative float32, so they are bit-equal to K4's values.  The
+dispatch permutation, ranks and counts are integers and carry no
+gradient, in both packages.
 """
 
 from __future__ import annotations
@@ -67,7 +76,8 @@ def _topk_gates(logits, k: int, impl: str):
     toward the smaller expert id, as ``jax.lax.top_k``."""
     probs = torch.softmax(logits, dim=-1)
     if impl == "sample_sort":
-        vals, ids = ops.topk(probs.contiguous(), k, device=probs.device)
+        _, ids = ops.topk(probs.detach().contiguous(), k, device=probs.device)
+        vals = probs.gather(1, ids.long())  # D21: K4's values, with a gradient
     else:
         # torch.topk does not promise the tie order; a stable sort does.
         vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)

@@ -808,3 +808,116 @@ def test_serving_faults_retry_then_raise_on_the_card(cuda, monkeypatch):
         faults.reset()
         guard.clear_degradation_log()
     assert calls == []
+
+
+def _train_steps(cfg, params, n, opt=None, seq=128, batch=2):
+    """n build_train_step steps from ``params`` (updated in place);
+    returns the metrics of each as floats."""
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import adamw_init
+
+    opt = opt or OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=n)
+    ds = SyntheticDataset(cfg.vocab, seq, batch, seed=0)
+    step = build_train_step(cfg, opt)
+    state = adamw_init(params, opt)
+    out = []
+    for i in range(n):
+        _, _, m = step(params, state, ds.batch_at(i))
+        out.append({k: float(v) for k, v in m.items()})
+    return out
+
+
+def test_smoke_train_step_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """The smoke configs (float32), the same weights and batch on both
+    devices, TF32 off: one train step through the kernels on the card and
+    the plain versions on the CPU; losses within 1e-5, parameters within
+    2 lr (an AdamW step moves an element by at most about lr)."""
+    from repro_torch import configs
+    from repro_torch.models import api, meta
+    from repro_torch.tree import leaves
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for arch in ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"):
+        cfg = configs.get_smoke(arch)
+        host = meta.init_params(api.template(cfg), torch.Generator().manual_seed(0), "cpu")
+        card = _tree_to(host, "cuda")
+        (mc,), (mh,) = _train_steps(cfg, card, 1), _train_steps(cfg, host, 1)
+        assert abs(mc["loss"] - mh["loss"]) <= 1e-5
+        for (path, a), (_, b) in zip(leaves(card), leaves(host)):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-3, msg=str(path))
+
+
+def test_train_step_launches_and_dispatches_on_the_card(cuda):
+    """Qwen3-MoE-30B-A3B at full width, two layers, remat "full", 2 x
+    1,024 tokens (16,384 routed slots: a bucket round): a step launches
+    K4, K1 and K2 as chip_smoke.training_launches reckons from the plans,
+    the forward's twice; the three dispatches give the same step-0 loss
+    bit for bit."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, meta
+
+    full = configs.get_config("qwen3-moe-30b-a3b").model
+    cfg = dataclasses.replace(full, n_layers=2)
+    losses = {}
+    for d in ("sample_sort", "xla_sort", "onehot"):
+        cfg_d = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=d))
+        params = meta.init_params(api.template(cfg_d), torch.Generator("cuda").manual_seed(0))
+        ops.reset_launch_counts()
+        (m,) = _train_steps(cfg_d, params, 1, seq=1024)
+        torch.cuda.synchronize()
+        got = {k: c for k, c in ops.launch_counts().items() if c}
+        assert got == _chip_smoke().training_launches(cfg_d, 2 * 1024)
+        losses[d] = m["loss"]
+        del params
+        torch.cuda.empty_cache()
+    assert len(set(losses.values())) == 1, losses
+
+
+def test_resumed_training_on_the_card_is_bit_equal(cuda, tmp_path):
+    """The smoke config on the card: a driver stopped at its step-2
+    checkpoint and resumed by a new one gives the straight run's losses,
+    bit for bit at the resumed step."""
+    from repro_torch import configs
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import api, meta
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import TrainDriver
+
+    cfg = configs.get_smoke("qwen3-moe-30b-a3b")
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+
+    def run(path, total):
+        step = build_train_step(cfg, opt)
+
+        def init():
+            p = meta.init_params(api.template(cfg), torch.Generator("cuda").manual_seed(0))
+            return (p, adamw_init(p, opt))
+
+        def step_fn(state, batch):
+            p, o, m = step(*state, batch)
+            return (p, o), m
+
+        return TrainDriver(step_fn, init, SyntheticDataset(cfg.vocab, 64, 2), ckpt_dir=str(path),
+                           ckpt_every=2, log_every=1, log_fn=lambda *_: None).run(total)[1]
+
+    straight = run(tmp_path / "a", 4)
+    run(tmp_path / "b", 2)
+    resumed = run(tmp_path / "b", 4)
+    assert resumed[0]["step"] == 2 and resumed[0]["loss"] == straight[2]["loss"]
+    assert abs(resumed[1]["loss"] - straight[3]["loss"]) <= 1e-3
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

@@ -148,9 +148,11 @@ def test_unported_layers_and_training_name_item_12():
             T.CausalLM(cfg, {})
     with pytest.raises(NotImplementedError, match="item 12"):
         api.template(small_cfg(n_encoder_layers=2))
-    for fn in (T.lm_forward, T.lm_loss, T.chunked_ce):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn(None)
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="item 12"):
+        api.loss_fn(None, batch, small_cfg(n_encoder_layers=2))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        api.loss_fn(None, {**batch, "prefix_embeds": batch["tokens"]}, small_cfg())
 
 
 # --------------------------------------------------------------- init
